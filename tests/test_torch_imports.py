@@ -1,0 +1,52 @@
+"""The PyTorch port stands alone: importing every ``repro_torch`` module
+loads neither JAX nor anything of the JAX package ``repro``."""
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+
+
+def _port_modules() -> list[str]:
+    root = SRC / "repro_torch"
+    mods = []
+    for path in sorted(root.rglob("*.py")):
+        rel = path.relative_to(SRC).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_port_has_the_slice_modules():
+    mods = set(_port_modules())
+    for m in ("core.versioned", "core.snapshotter", "core.replica",
+              "kernels.ref", "kernels.snapshot_resolve", "kernels.segment_sum",
+              "kernels.ops", "graph.dyngraph", "graph.compute",
+              "train.checkpoint", "graph.wal", "graph.sharded", "graph.query",
+              "launch.serve_graph"):
+        assert f"repro_torch.{m}" in mods, m
+    for src in ("snapshot_resolve.cu", "segment_sum.cu"):
+        assert (SRC / "repro_torch" / "csrc" / src).is_file()
+
+
+def test_importing_the_port_loads_no_jax_and_no_repro():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith('jax.') or m == 'repro'\n"
+        "             or m.startswith('repro.'))\n"
+        "print(len(sys.modules))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
