@@ -26,9 +26,36 @@ before the result lines:
    1e-5 relative) against its plain version and ``torch.segment_reduce``.
 4. A small stream served on the card and on the CPU (the plain path the
    CPU parity tests hold against the JAX package) must agree.
+5. The model-serving slice, driven as ``python -m repro_torch.launch.serve``
+   drives it: full-width, full-depth ``recurrentgemma-2b`` (26 layers,
+   d_model 2560, vocabulary 256,000) built on the card from
+   ``torch.Generator`` seed 0; ``Server.generate`` answers 8 requests of
+   4096 prompt tokens (NumPy seed 0) with 32 greedy tokens each. Launch
+   counts are reset just before and read just after: ``lru_scan`` must
+   have run exactly 18 times (one per RG-LRU layer) and
+   ``flash_attention`` exactly 8 (one per local-attention layer). Then
+   each layer's mixer runs through the kernels and through the plain
+   versions on the same input (the plain route's hidden state): its
+   output must agree within ``MIXER_RTOL`` and each RG-LRU state within
+   ``STATE_RTOL`` of their largest magnitudes, and faults planted in the
+   kernel route (the window dropped, the window one kv tile short, the
+   scan's ``b`` one step late) must exceed those limits. Last, the whole
+   prefill runs through the kernels and through the plain versions; the
+   last-position logits and every cache must agree within ``MODEL_RTOL``
+   of each tensor's largest magnitude.
 
-The line before the last is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
+Phase 2 also holds the model kernels against their plain versions at the
+slice's shapes: ``lru_scan`` at (8, 4096, 2560) with and without ``h0``
+and at (2, 1000, 2560) (atol 1e-5, rtol 1e-4); ``flash_attention`` at
+(8, 10, 1, 4096, 256) with window 2048 in float32 (2e-4: the window edge
+and the tile skipping at the serving shape) and in bf16 (1e-2), without
+the window in bf16 (1e-2), and at (1, 8, 2, 1024, 128) float32 (2e-4).
+
+The lines before the last are the checks off the main path's shapes as
+JSON (``{"checks": [...]}``), the card, and the kernel table as JSON (one
+row per kernel, at the shape its main path runs, with that run's
+launches); the last line is ``{"ok": true, "device": {...}}``. Imports
+nothing of JAX or ``repro``.
 """
 from __future__ import annotations
 
@@ -41,6 +68,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
+BF16_TC_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 
 N_VERTICES = 1 << 20
 EPOCHS = 16
@@ -52,6 +80,19 @@ SEED = 0
 MASK_N = 16_000_000
 RESOLVE_N, RESOLVE_K = 4_000_000, 4
 BF16_M, BF16_F = 1_000_000, 16
+
+MODEL_ARCH = "recurrentgemma-2b"
+MODEL_REQUESTS, MODEL_PROMPT, MODEL_GEN = 8, 4096, 32
+LRU_SHAPE = (MODEL_REQUESTS, MODEL_PROMPT, 2560)
+FLASH_SHAPE = (MODEL_REQUESTS, 10, 1, MODEL_PROMPT, 256)   # B, Hq, Hkv, S, hd
+FLASH_WINDOW = 2048
+# kernel route vs plain route on the card, relative to each tensor's
+# largest magnitude: one layer's mixer on the same input (bf16 output; the
+# state in float32), see check_layers_against_plain; the whole prefill,
+# see check_model_against_plain
+MIXER_RTOL = 1e-2
+STATE_RTOL = 1e-5
+MODEL_RTOL = 5e-2
 
 
 class SmokeFailure(Exception):
@@ -93,16 +134,20 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """Least time on an H100 SXM for the work, in ms, and what bounds it."""
+def bound(nbytes: float, ops: float,
+          ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
+    """Least time on an H100 SXM for the work, in ms, and what bounds it:
+    the bytes over the memory rate or the operations over ``ops_per_s``,
+    the card's peak for their type."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def kernel_row(name, source, replaces, *, max_abs_err, ms, plain_ms,
-               nbytes, ops, library_ms, shape) -> dict:
-    b_ms, b_by = bound(nbytes, ops)
+               nbytes, ops, library_ms, shape,
+               ops_per_s: float = FP32_OPS_PER_S) -> dict:
+    b_ms, b_by = bound(nbytes, ops, ops_per_s)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": None,
             "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
@@ -216,8 +261,118 @@ def check_segment_sum_bf16(torch) -> dict:
                                    device="cuda")).values.to(torch.int32)
     values = torch.randn(BF16_M, BF16_F, generator=g, device="cuda") \
         .to(torch.bfloat16)
-    return check_segment_sum(torch, "segment_sum (bf16, F=16)", values, ids,
-                             n, 3e-2)
+    return check_segment_sum(torch, "segment_sum", values, ids, n, 3e-2)
+
+
+def check_lru_scan(torch) -> dict:
+    """lru_scan against its plain version at the RG-LRU prefill's shape
+    (with and without h0) and at a ragged S; one row, the slice's shape."""
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 2)
+    errs = {}
+    for shape, with_h0 in ((LRU_SHAPE, False), (LRU_SHAPE, True),
+                           ((2, 1000, LRU_SHAPE[2]), False)):
+        a = 0.5 + 0.499 * torch.rand(shape, generator=g, device="cuda")
+        b = torch.randn(shape, generator=g, device="cuda")
+        h0 = (torch.randn((shape[0], shape[2]), generator=g, device="cuda")
+              if with_h0 else None)
+        got = ops.lru_scan(a, b, h0, use_kernel=True)
+        want = ref.lru_scan(a, b, h0)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(bool(torch.isfinite(got).all()), f"lru_scan {shape}: non-finite")
+        check(bool(torch.allclose(got, want, atol=1e-5, rtol=1e-4)),
+              f"lru_scan {shape} h0={with_h0}: max |kernel - plain| {err}")
+        errs[(shape, with_h0)] = err
+        if shape == LRU_SHAPE and not with_h0:
+            ms = cuda_ms(torch, lambda: ops.lru_scan(a, b, use_kernel=True))
+            plain = cuda_ms(torch, lambda: ref.lru_scan(a, b), reps=5,
+                            warmup=1)
+            row_err = err
+        del a, b, h0, got, want
+    log(f"phase 2 lru_scan max |kernel - plain|: {errs}")
+    B, S, C = LRU_SHAPE
+    n = B * S * C
+    return kernel_row(
+        "lru_scan", "src/repro_torch/csrc/lru_scan.cu",
+        "src/repro/kernels/lru_scan.py:52", max_abs_err=row_err, ms=ms,
+        plain_ms=plain, nbytes=12 * n, ops=2 * n, library_ms=None,
+        shape=f"B={B},S={S},C={C},float32")
+
+
+def causal_pairs(S: int, window) -> int:
+    """(q, k) pairs with 0 <= q - k < window (window None: q - k >= 0)."""
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def check_flash_attention(torch) -> tuple[dict, list[dict]]:
+    """flash_attention against its plain version (the full S x S softmax)
+    and timed beside scaled_dot_product_attention with the same mask.
+    Returns the row at the main path's shape (bf16, window 2048) and the
+    rows of the other cases. The float32 case at that shape pins the
+    window edge and the kv-tile skipping: the kernel computes in float32
+    for both dtypes, so only the inputs' rounding differs from bf16."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 3)
+    rows = []
+    cases = ((FLASH_SHAPE, torch.bfloat16, FLASH_WINDOW, 1e-2),
+             (FLASH_SHAPE, torch.float32, FLASH_WINDOW, 2e-4),
+             (FLASH_SHAPE, torch.bfloat16, None, 1e-2),
+             ((1, 8, 2, 1024, 128), torch.float32, None, 2e-4))
+    for (B, Hq, Hkv, S, hd), dtype, window, tol in cases:
+        q = torch.randn((B, Hq, S, hd), generator=g, device="cuda").to(dtype)
+        k = torch.randn((B, Hkv, S, hd), generator=g, device="cuda").to(dtype)
+        v = torch.randn((B, Hkv, S, hd), generator=g, device="cuda").to(dtype)
+        got = ops.flash_attention(q, k, v, window=window, use_kernel=True)
+        want = ref.flash_attention(q, k, v, window=window)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        check(got.dtype == dtype and bool(torch.isfinite(got).all()),
+              f"flash_attention {tuple(q.shape)}: dtype or non-finite")
+        check(bool(torch.allclose(got.float(), want.float(), atol=tol,
+                                  rtol=tol)),
+              f"flash_attention {tuple(q.shape)} window={window}: max "
+              f"|kernel - plain| {err} over {tol}")
+        ms = cuda_ms(torch, lambda: ops.flash_attention(
+            q, k, v, window=window, use_kernel=True), reps=10)
+        plain = cuda_ms(torch, lambda: ref.flash_attention(
+            q, k, v, window=window), reps=5, warmup=1)
+        del want
+        # the library yardstick: SDPA over kv heads expanded to Hq, with
+        # the same boolean mask (timed only; the port never calls it)
+        ke = k.repeat_interleave(Hq // Hkv, dim=1)
+        ve = v.repeat_interleave(Hq // Hkv, dim=1)
+        pos = torch.arange(S, device="cuda")
+        if window is None:
+            library = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, ke, ve, is_causal=True), reps=10)
+        else:
+            d = pos[:, None] - pos[None, :]
+            mask = (d >= 0) & (d < window)
+            library = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, ke, ve, attn_mask=mask), reps=10)
+        pairs = B * Hq * causal_pairs(S, window)
+        esize = q.element_size()
+        nbytes = esize * (2 * B * Hq * S * hd + 2 * B * Hkv * S * hd)
+        rows.append(kernel_row(
+            "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:78", max_abs_err=err,
+            ms=ms, plain_ms=plain, nbytes=nbytes, ops=4 * hd * pairs,
+            library_ms=library,
+            shape=f"B={B},Hq={Hq},Hkv={Hkv},S={S},hd={hd},"
+                  f"{str(dtype).split('.')[-1]},window={window}",
+            ops_per_s=BF16_TC_OPS_PER_S if dtype == torch.bfloat16
+            else FP32_OPS_PER_S))
+        del q, k, v, ke, ve, got
+    return rows[0], rows[1:]
 
 
 # --------------------------------------------------------------- phase 3
@@ -359,6 +514,215 @@ def check_small_cpu_agreement(torch) -> int:
     return compared
 
 
+# --------------------------------------------------------------- phase 5
+def serve_model(torch, cfg, device: str = "cuda",
+                requests: int = MODEL_REQUESTS, prompt: int = MODEL_PROMPT,
+                gen: int = MODEL_GEN) -> dict:
+    """``Server.generate`` on ``cfg`` (random weights from seed 0),
+    counting the kernels' launches around it; each RG-LRU layer must have
+    launched ``lru_scan`` once and each attention layer
+    ``flash_attention`` once."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import transformer as tf
+
+    t = time.perf_counter()
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED)
+    model = tf.init_params(cfg, g, device)
+    sync(torch, device)
+    init_s = time.perf_counter() - t
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (requests, prompt)).astype(np.int32)
+    server = Server(cfg, model)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = server.generate(prompts, gen)
+    sync(torch, device)
+    counts = ops.launch_counts()
+    kinds = [k for _, k in model.blocks()]
+    on_card = device == "cuda"
+    want = {"lru_scan": kinds.count("rglru") if on_card else 0,
+            "flash_attention": len(kinds) - kinds.count("rglru")
+            if on_card else 0}
+    for name, n in want.items():
+        check(counts[name] == n,
+              f"{name} launched {counts[name]} times, expected {n}")
+    check(out.shape == (requests, gen) and out.dtype == np.int32
+          and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          f"generated tokens of shape {out.shape}, dtype {out.dtype}")
+    return {"cfg": cfg, "model": model, "prompts": prompts, "out": out,
+            "counts": counts, "init_s": init_s, "timings": server.timings,
+            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                         if on_card else None),
+            "params": sum(p.numel() for p in model.parameters())}
+
+
+def sync(torch, device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def max_rel_err(torch, got, want) -> float:
+    """max |got - want| over max |want|, in float32."""
+    g, w = got.float(), want.float()
+    check(bool(torch.isfinite(g).all()) and bool(torch.isfinite(w).all()),
+          "non-finite values in the prefill")
+    return float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+
+
+class planted:
+    """Within ``with``, the model path's ``ops`` entry point ``name`` runs
+    the kernel on altered inputs: a fault the layer check must catch."""
+
+    def __init__(self, name: str, alter):
+        from repro_torch.kernels import ops
+        self.ops, self.name, self.alter = ops, name, alter
+
+    def __enter__(self):
+        self.real = getattr(self.ops, self.name)
+
+        def faulty(*args, **kw):
+            args, kw = self.alter(args, kw)
+            return self.real(*args, **kw)
+        setattr(self.ops, self.name, faulty)
+
+    def __exit__(self, *exc):
+        setattr(self.ops, self.name, self.real)
+
+
+def late_b(args, kw):
+    """lru_scan with b_t read one step late."""
+    a, b = args[:2]
+    return (a, b.roll(1, 1)) + args[2:], kw
+
+
+def window_to(window):
+    def alter(args, kw):
+        return args, {**kw, "window": window}
+    return alter
+
+
+def check_layers_against_plain(torch, run: dict) -> dict:
+    """Each layer's mixer through the kernels (``use_kernel=None``, as the
+    model path calls them) and through the plain versions, both fed the
+    plain route's hidden state, so that no error carries over from the
+    layers before. Both round their bf16 output once from float32 values
+    that differ in the last bits (the attention probabilities kept in
+    float32 against rounded to bf16; the scan's one FMA against a product
+    and a sum), so the outputs may differ by one bf16 step (2^-8 of the
+    largest magnitude): MIXER_RTOL allows 2.5 steps. The RG-LRU state is the scan's float32 output, held to
+    STATE_RTOL. Planted faults in the first layer of each kind must
+    exceed the limits."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.nn import attention as attn
+    from repro_torch.nn import recurrent as rec
+    from repro_torch.nn.layers import apply_norm
+
+    cfg, model = run["cfg"], run["model"]
+    prompts = torch.from_numpy(run["prompts"]).to(model.device)
+    B, S = prompts.shape
+    positions = torch.arange(S, dtype=torch.int32, device=model.device)[
+        None].expand(B, S)
+    window = attn.window_for("local", cfg)
+    faults = {"attention": {"window dropped": window_to(None)},
+              "rglru": {"b one step late": late_b}}
+    tile = 64                     # the kernel's kv tile (flash_attention.cu)
+    if window is not None and window > tile:
+        faults["attention"]["window one kv tile short"] = window_to(
+            window - tile)
+
+    def mixer(block, kind, h, use_kernel):
+        if kind == "rglru":
+            return rec.rglru_forward(block.mixer, h, cfg, use_kernel,
+                                     return_state=True)
+        return attn.attn_forward(block.mixer, h, cfg, kind, positions,
+                                 use_kernel=use_kernel), {}
+
+    def errors(got, want):
+        (yk, sk), (yp, sp) = got, want
+        e = {"out": max_rel_err(torch, yk, yp)}
+        e.update({f"state.{n}": max_rel_err(torch, sk[n], sp[n]) for n in sp})
+        return e
+
+    per_layer, planted_errs = [], {}
+    with torch.inference_mode():
+        x = tf.embed_inputs(model, cfg, prompts, positions)
+        for i, (block, kind) in enumerate(model.blocks()):
+            h = apply_norm(block.norm1, x, cfg.norm)
+            plain = mixer(block, kind, h, False)
+            e = errors(mixer(block, kind, h, None), plain)
+            per_layer.append(e)
+            family = "rglru" if kind == "rglru" else "attention"
+            for name, alter in faults.pop(family, {}).items():
+                with planted("lru_scan" if family == "rglru"
+                             else "flash_attention", alter):
+                    planted_errs[f"layer{i} {name}"] = errors(
+                        mixer(block, kind, h, None), plain)
+            x, _ = tf.apply_block(block, x, cfg, kind, positions, False)
+            del h, plain
+    sync(torch, model.device.type)
+
+    def over(e):
+        return [n for n, v in e.items()
+                if v > (STATE_RTOL if n.startswith("state") else MIXER_RTOL)]
+    for i, e in enumerate(per_layer):
+        check(not over(e), f"layer {i} kernel vs plain mixer: {e} (limits "
+                           f"{MIXER_RTOL}, state {STATE_RTOL})")
+    missed = [n for n, e in planted_errs.items() if not over(e)]
+    check(not missed, f"planted faults not caught: {missed} {planted_errs}")
+    worst = {n: max(e.get(n, 0.0) for e in per_layer)
+             for n in ("out", "state.h", "state.conv")}
+    return {"per_layer": per_layer, "worst": worst, "planted": planted_errs}
+
+
+def check_model_against_plain(torch, run: dict, gen: int = MODEL_GEN,
+                              rtol: float = MODEL_RTOL) -> dict:
+    """The prefill through the kernels against the same prefill through the
+    plain versions, both on the card in bf16. The two routes round at other
+    places (the kernel keeps attention probabilities in float32 where the
+    plain route rounds them to bf16 before the product with v; the scan's
+    FMA rounds once where the plain loop rounds twice); the differences
+    enter the bf16 residual stream and grow over 26 layers, so each tensor
+    is held to MODEL_RTOL of its largest magnitude."""
+    from repro_torch.models import transformer as tf
+
+    cfg, model = run["cfg"], run["model"]
+    device = model.device.type
+    prompts = torch.from_numpy(run["prompts"]).to(model.device)
+    capacity = prompts.shape[1] + gen
+    with torch.inference_mode():
+        t = time.perf_counter()
+        k_logits, k_cache = tf.prefill(model, cfg, prompts, capacity)
+        sync(torch, device)
+        kernel_s = time.perf_counter() - t
+        t = time.perf_counter()
+        p_logits, p_cache = tf.prefill(model, cfg, prompts, capacity,
+                                       use_kernel=False)
+        sync(torch, device)
+        plain_s = time.perf_counter() - t
+    check(tuple(k_logits.shape) == (prompts.shape[0], 1, cfg.vocab_size),
+          f"logits shape {tuple(k_logits.shape)}")
+    errs = {"logits": max_rel_err(torch, k_logits, p_logits)}
+    layers = list(zip(tf.layer_caches(cfg, k_cache),
+                      tf.layer_caches(cfg, p_cache)))
+    for i, (kc, pc) in enumerate(layers):
+        for name in kc:
+            errs[f"layer{i}.{name}"] = max_rel_err(torch, kc[name], pc[name])
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= rtol,
+          f"kernel prefill vs plain: {worst} off by {errs[worst]} of its "
+          f"largest magnitude (limit {rtol})")
+    per_layer = [max(v for k, v in errs.items()
+                     if k.startswith(f"layer{i}.")) for i in range(len(layers))]
+    return {"kernel_prefill_s": kernel_s, "plain_prefill_s": plain_s,
+            "logits_rel_err": errs["logits"], "worst": worst,
+            "worst_rel_err": errs[worst], "per_layer": per_layer}
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     root = pathlib.Path(__file__).resolve().parent
@@ -368,10 +732,13 @@ def main() -> int:
     import torch
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is False")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
     from repro_torch.kernels import _lib, ops
+    from repro_torch.nn.layers import strict_matmul
+
+    # float32 products in full float32 (allow_tf32 False) and bf16 products
+    # accumulated in float32 (allow_bf16_reduced_precision_reduction False),
+    # as the reference's preferred_element_type=float32 asks
+    strict_matmul()
 
     t_all = time.perf_counter()
     card = device_line()
@@ -383,8 +750,14 @@ def main() -> int:
         f"(nvcc {_lib.build_seconds})")
 
     t = time.perf_counter()
+    # rows: each kernel at the shape its main path runs; extra: the other
+    # shapes and dtypes it is held at, off the main path
     rows = check_stamp_kernels(torch)
-    rows.append(check_segment_sum_bf16(torch))
+    extra = [check_segment_sum_bf16(torch)]
+    rows.append(check_lru_scan(torch))
+    fa_row, fa_extra = check_flash_attention(torch)
+    rows.append(fa_row)
+    extra.extend(fa_extra)
     log(f"phase 2 kernels vs plain: {time.perf_counter() - t:.3f} s")
 
     t = time.perf_counter()
@@ -422,14 +795,57 @@ def main() -> int:
     log(f"phase 4 final-shape segment_sum + card/CPU agreement on "
         f"{compared} answers: {time.perf_counter() - t:.3f} s")
 
+    from repro_torch.configs import get_config
+
+    t = time.perf_counter()
+    model_run = serve_model(torch, get_config(MODEL_ARCH))
+    model_counts = model_run["counts"]
+    tm = model_run["timings"]
+    tokens = MODEL_REQUESTS * MODEL_GEN
+    log(f"phase 5 model {MODEL_ARCH}: {model_run['params']} parameters "
+        f"built in {model_run['init_s']:.3f} s; generate {MODEL_REQUESTS} x "
+        f"{MODEL_PROMPT} prompt tokens + {MODEL_GEN} new: prefill "
+        f"{tm['prefill_s']:.3f} s, decode {tm['decode_s'] * 1e3 / MODEL_GEN:.3f}"
+        f" ms per step of one token per request ({tokens / tm['decode_s']:.1f}"
+        f" tokens/s decode, "
+        f"{tokens / (tm['prefill_s'] + tm['decode_s']):.1f} tokens/s "
+        f"end to end); peak device memory {model_run['peak_gib']:.3f} GiB; "
+        f"launches {model_counts}")
+    t_layers = time.perf_counter()
+    layers = check_layers_against_plain(torch, model_run)
+    log(f"phase 5 layer by layer, kernel vs plain mixer on the same input: "
+        f"worst {layers['worst']} (limits {MIXER_RTOL}, state "
+        f"{STATE_RTOL}); planted faults {layers['planted']}; "
+        f"{time.perf_counter() - t_layers:.3f} s")
+    log("phase 5 per-layer mixer max rel err: " + " ".join(
+        "/".join(f"{v:.2e}" for v in e.values()) for e in layers["per_layer"]))
+    agree = check_model_against_plain(torch, model_run)
+    del model_run
+    torch.cuda.empty_cache()
+    lru_ms = next(r["ms"] for r in rows if r["name"] == "lru_scan")
+    fa_ms = next(r["ms"] for r in rows if r["name"] == "flash_attention")
+    share = (model_counts["lru_scan"] * lru_ms + model_counts[
+        "flash_attention"] * fa_ms) / (agree["kernel_prefill_s"] * 1e3)
+    log(f"phase 5 kernel prefill {agree['kernel_prefill_s']:.3f} s (the "
+        f"kernels' phase-2 times x launches: {share:.3f} of it) vs plain "
+        f"prefill {agree['plain_prefill_s']:.3f} s on the card; logits "
+        f"max rel err {agree['logits_rel_err']:.3e}, worst "
+        f"{agree['worst']} {agree['worst_rel_err']:.3e} (limit "
+        f"{MODEL_RTOL}); phase {time.perf_counter() - t:.3f} s")
+    log("phase 5 per-layer cache max rel err: "
+        + " ".join(f"{x:.2e}" for x in agree["per_layer"]))
+
     for row in rows:
-        base = row["name"].split(" ")[0]
-        row["launches"] = counts[base]
+        name = row["name"]
+        row["launches"] = (model_counts if name in ("lru_scan",
+                                                    "flash_attention")
+                           else counts)[name]
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"
                     or m.startswith("repro."))
     check(not leaked, f"imported {leaked[:5]}")
     log(f"total: {time.perf_counter() - t_all:.3f} s")
+    print(json.dumps({"checks": extra}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

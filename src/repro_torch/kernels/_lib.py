@@ -23,7 +23,8 @@ import time
 import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("snapshot_resolve.cu", "segment_sum.cu")
+SOURCES = ("snapshot_resolve.cu", "segment_sum.cu", "lru_scan.cu",
+           "flash_attention.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -46,6 +47,10 @@ _SIGNATURES = {
     "rt_segment_sum": (ctypes.c_int, [_P, ctypes.c_int, _P, _P, _P,
                                       ctypes.c_longlong, ctypes.c_longlong,
                                       ctypes.c_int, _P]),
+    "rt_lru_scan": (ctypes.c_int, [_P, _P, _P, _P, ctypes.c_longlong,
+                                   ctypes.c_longlong, ctypes.c_longlong, _P]),
+    "rt_flash_attention": (ctypes.c_int, [_P, _P, _P, _P] + [ctypes.c_int] * 8
+                           + [ctypes.c_float, _P]),
 }
 
 

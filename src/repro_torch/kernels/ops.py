@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import lru_scan as _lru
 from repro_torch.kernels import ref
 from repro_torch.kernels import segment_sum as _ss
 from repro_torch.kernels import snapshot_resolve as _sr
@@ -22,7 +24,9 @@ from repro_torch.kernels import snapshot_resolve as _sr
 # the CUDA wrappers, each carrying its own ``launches`` count
 _WRAPPERS = {"liveness_mask": _sr.liveness_mask,
              "snapshot_resolve": _sr.snapshot_resolve,
-             "segment_sum": _ss.segment_sum}
+             "segment_sum": _ss.segment_sum,
+             "lru_scan": _lru.lru_scan,
+             "flash_attention": _fa.flash_attention}
 
 
 def wants_kernel(t: torch.Tensor, use_kernel) -> bool:
@@ -54,6 +58,20 @@ def liveness_mask(created, deleted, query_version, *, use_kernel=None):
     if wants_kernel(created, use_kernel):
         return _sr.liveness_mask(created, deleted, query_version)
     return ref.liveness_mask(created, deleted, query_version)
+
+
+def lru_scan(a, b, h0=None, *, use_kernel=None):
+    """RG-LRU recurrence over axis 1 of (B, S, C) float32 ``a``, ``b``."""
+    if wants_kernel(a, use_kernel):
+        return _lru.lru_scan(a, b, h0)
+    return ref.lru_scan(a, b, h0)
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, use_kernel=None):
+    """Attention of (B, Hq, S, hd) ``q`` over (B, Hkv, S, hd) ``k``, ``v``."""
+    if wants_kernel(q, use_kernel):
+        return _fa.flash_attention(q, k, v, causal=causal, window=window)
+    return ref.flash_attention(q, k, v, causal=causal, window=window)
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,0 +1,273 @@
+"""The composable decoder; the port of ``repro/models/transformer.py``.
+
+The block *pattern* (the repeating unit of mixer kinds) is an
+``nn.ModuleDict`` of blocks ``b{i}``; the model holds ``num_units`` of them
+in a ``ModuleList`` walked by a Python loop (the reference stacks their
+parameters on a leading axis and scans), then a tail of
+``num_layers % len(pattern)`` blocks named ``tail{i}``. The port runs the
+attention kinds and ``rglru`` with ``mlp`` feed-forwards; other kinds
+raise.
+
+Forward paths, each taking ``use_kernel`` (None: the CUDA kernels on a
+card, the plain versions on the CPU):
+  * ``forward``       — (B, S) tokens -> (B, S, D) hidden (+ aux, 0).
+  * ``prefill``       — forward + the decode caches filled at the prompt's
+                        end.
+  * ``decode_step``   — one token with per-layer caches (KV / recurrent).
+
+The reference's ``launch/sharding.constrain`` mesh hints have no
+counterpart on one device and are dropped.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ATTN_KINDS, ModelConfig
+from repro_torch.nn import attention as attn
+from repro_torch.nn import recurrent as rec
+from repro_torch.nn.layers import (MLP, Norm, apply_norm, compute_dtype,
+                                   dense, embed_scale, mlp, normal_, param,
+                                   sinusoidal_positions_dynamic, weight_dtype)
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    kinds = set(cfg.pattern) | set(cfg.tail_pattern)
+    bad = sorted(k for k in kinds if k not in ATTN_KINDS and k != "rglru")
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.name}: mixer kinds {bad} are not ported (ROADMAP.md "
+            "section 2, the xLSTM family)")
+    if cfg.ffn == "moe":
+        raise NotImplementedError(f"{cfg.name}: MoE feed-forwards are not "
+                                  "ported (ROADMAP.md section 2)")
+    if cfg.embed_mode != "tokens":
+        raise NotImplementedError(f"{cfg.name}: frames input is not ported "
+                                  "(ROADMAP.md section 2)")
+    if cfg.sandwich_norm:
+        raise NotImplementedError(f"{cfg.name}: sandwich norms are not "
+                                  "ported (ROADMAP.md section 2)")
+
+
+def _has_ffn(cfg: ModelConfig, kind: str) -> bool:
+    return cfg.ffn != "none" and (kind in ATTN_KINDS or kind == "rglru")
+
+
+# ------------------------------------------------------------------ modules
+class Block(nn.Module):
+    """norm1 -> mixer -> residual, then norm2 -> ffn -> residual."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, device):
+        super().__init__()
+        self.norm1 = Norm(cfg.d_model, cfg.norm, device)
+        if kind in ATTN_KINDS:
+            self.mixer = attn.Attention(cfg, device)
+        elif kind == "rglru":
+            self.mixer = rec.RGLRU(cfg, device)
+        else:
+            raise ValueError(kind)
+        if _has_ffn(cfg, kind):
+            self.norm2 = Norm(cfg.d_model, cfg.norm, device)
+            self.ffn = MLP(cfg, device)
+
+
+class Transformer(nn.Module):
+    """Parameters of the whole model, uninitialised (see
+    :func:`init_params` and ``models/params.py``). ``device="meta"`` gives
+    the shapes without memory."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        _check_supported(cfg)
+        self.cfg = cfg
+        wd = weight_dtype(cfg, device)
+        self.embed = param((cfg.vocab_size, cfg.d_model), wd, device)
+        self.lm_head = param((cfg.d_model, cfg.vocab_size), wd, device)
+        self.final_norm = Norm(cfg.d_model, cfg.norm, device)
+        self.units = nn.ModuleList(
+            nn.ModuleDict({f"b{i}": Block(cfg, kind, device)
+                           for i, kind in enumerate(cfg.pattern)})
+            for _ in range(cfg.num_units))
+        for i, kind in enumerate(cfg.tail_pattern):
+            self.add_module(f"tail{i}", Block(cfg, kind, device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def blocks(self):
+        """(block, kind) in layer order."""
+        for unit in self.units:
+            for i, kind in enumerate(self.cfg.pattern):
+                yield unit[f"b{i}"], kind
+        for i, kind in enumerate(self.cfg.tail_pattern):
+            yield getattr(self, f"tail{i}"), kind
+
+
+# weights the reference initialises from N(0, 0.02); the rest are constants
+_RANDOM = {"embed", "lm_head", "wq", "wk", "wv", "wo", "in_x", "in_gate",
+           "w", "w_ig", "w_rg", "out", "w1", "w2", "w3"}
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device) -> Transformer:
+    """A model with random weights drawn from ``generator`` (on
+    ``device``). The bits differ from the reference's ``jax.random``
+    draws; carry the reference's weights across with
+    ``models.params.from_reference`` where they must agree."""
+    model = Transformer(cfg, device)
+    for name, t in model.named_parameters():
+        if name.rsplit(".", 1)[-1] in _RANDOM:
+            normal_(t.data, generator)
+    return model
+
+
+# -------------------------------------------------------------- block forward
+def _ffn_residual(p: Block, x, cfg: ModelConfig, kind: str):
+    if _has_ffn(cfg, kind):
+        h = apply_norm(p.norm2, x, cfg.norm)
+        x = x + mlp(p.ffn, h, cfg)
+    return x
+
+
+def apply_block(p: Block, x, cfg: ModelConfig, kind: str, positions,
+                use_kernel=None, capacity=None):
+    """One layer: (B, S, D) -> ((B, S, D), cache). With ``capacity`` the
+    cache is the block's decode cache at the prompt's end (attention caches
+    padded to ``capacity``), else None; the reference's ``_apply_block``
+    and ``_prefill_block`` in one."""
+    h = apply_norm(p.norm1, x, cfg.norm)
+    cache = None
+    if kind in ATTN_KINDS:
+        if capacity is None:
+            h = attn.attn_forward(p.mixer, h, cfg, kind, positions,
+                                  use_kernel=use_kernel)
+        else:
+            h, kv = attn.attn_forward(p.mixer, h, cfg, kind, positions,
+                                      return_kv=True, use_kernel=use_kernel)
+            pad = capacity - x.shape[1]
+            cache = {"k": F.pad(kv["k"], (0, 0, 0, pad)),
+                     "v": F.pad(kv["v"], (0, 0, 0, pad))}
+    elif capacity is None:
+        h = rec.rglru_forward(p.mixer, h, cfg, use_kernel=use_kernel)
+    else:
+        h, cache = rec.rglru_forward(p.mixer, h, cfg, use_kernel=use_kernel,
+                                     return_state=True)
+    return _ffn_residual(p, x + h, cfg, kind), cache
+
+
+def embed_inputs(model: Transformer, cfg: ModelConfig, inputs, positions):
+    dt = compute_dtype(model.device)
+    x = F.embedding(inputs.long(), model.embed).to(dt)
+    if cfg.scale_embeddings:
+        x = x * embed_scale(cfg.d_model, dt)
+    if cfg.pos_emb == "sinusoidal":
+        B, S = positions.shape
+        pe = sinusoidal_positions_dynamic(positions.reshape(-1), cfg.d_model)
+        x = x + pe.reshape(B, S, cfg.d_model).to(getattr(torch, cfg.dtype))
+    return x
+
+
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32, device=device)[None] \
+        .expand(B, S)
+
+
+def forward(model: Transformer, cfg: ModelConfig, inputs, positions,
+            use_kernel=None):
+    """Body -> (hidden (B, S, D), aux). aux is the MoE load-balancing mean
+    in the reference; with no MoE here it is 0."""
+    x = embed_inputs(model, cfg, inputs, positions)
+    for block, kind in model.blocks():
+        x, _ = apply_block(block, x, cfg, kind, positions, use_kernel)
+    x = apply_norm(model.final_norm, x, cfg.norm)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def logits_fn(model: Transformer, cfg: ModelConfig, hidden):
+    logits = dense(hidden, model.lm_head).float()
+    if cfg.logit_softcap:
+        c = cfg.logit_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits
+
+
+# ------------------------------------------------------------------- caches
+def _block_cache(cfg: ModelConfig, kind: str, batch, capacity, device):
+    if kind in ATTN_KINDS:
+        return attn.init_kv_cache(cfg, batch, capacity, device)
+    if kind == "rglru":
+        return rec.init_rglru_cache(cfg, batch, device)
+    raise ValueError(kind)
+
+
+def init_cache(cfg: ModelConfig, batch, capacity, device):
+    """{"units": [one dict per unit, {"b{i}": block cache}], "tail{i}": ...}
+    (the reference stacks the unit caches on a leading axis)."""
+    cache = {"units": [{f"b{i}": _block_cache(cfg, kind, batch, capacity,
+                                              device)
+                        for i, kind in enumerate(cfg.pattern)}
+                       for _ in range(cfg.num_units)]}
+    for i, kind in enumerate(cfg.tail_pattern):
+        cache[f"tail{i}"] = _block_cache(cfg, kind, batch, capacity, device)
+    return cache
+
+
+def prefill(model: Transformer, cfg: ModelConfig, inputs, capacity=None,
+            use_kernel=None):
+    """Run the full prompt, return (last-position logits (B, 1, V), decode
+    cache)."""
+    B, S = inputs.shape[:2]
+    capacity = capacity or S
+    positions = _positions(B, S, model.device)
+    x = embed_inputs(model, cfg, inputs, positions)
+    caches = []
+    for block, kind in model.blocks():
+        x, c = apply_block(block, x, cfg, kind, positions, use_kernel,
+                           capacity)
+        caches.append(c)
+    x = apply_norm(model.final_norm, x, cfg.norm)
+    return logits_fn(model, cfg, x[:, -1:]), _nest(cfg, caches)
+
+
+def _nest(cfg: ModelConfig, per_layer: list) -> dict:
+    """Per-layer caches (layer order) -> the structure of init_cache."""
+    n = len(cfg.pattern)
+    cache = {"units": [{f"b{i}": per_layer[u * n + i] for i in range(n)}
+                       for u in range(cfg.num_units)]}
+    for i in range(len(cfg.tail_pattern)):
+        cache[f"tail{i}"] = per_layer[cfg.num_units * n + i]
+    return cache
+
+
+def layer_caches(cfg: ModelConfig, cache: dict) -> list:
+    """The per-layer caches of ``cache``, in layer order."""
+    out = [unit[f"b{i}"] for unit in cache["units"]
+           for i in range(len(cfg.pattern))]
+    return out + [cache[f"tail{i}"] for i in range(len(cfg.tail_pattern))]
+
+
+def _decode_block(p: Block, c, x, cfg: ModelConfig, kind: str, pos: int):
+    h = apply_norm(p.norm1, x, cfg.norm)
+    if kind in ATTN_KINDS:
+        h, c = attn.attn_decode(p.mixer, h, cfg, kind, c, pos)
+    else:
+        h, c = rec.rglru_decode(p.mixer, h, cfg, c)
+    return _ffn_residual(p, x + h, cfg, kind), c
+
+
+def decode_step(model: Transformer, cfg: ModelConfig, cache, inputs,
+                pos: int):
+    """One decode step. inputs: (B, 1) tokens; pos: int. Returns (logits
+    (B, 1, V), new cache). Attention caches are updated in place."""
+    B = inputs.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int32,
+                           device=model.device)
+    x = embed_inputs(model, cfg, inputs, positions)
+    new = []
+    for (block, kind), c in zip(model.blocks(), layer_caches(cfg, cache)):
+        x, c = _decode_block(block, c, x, cfg, kind, pos)
+        new.append(c)
+    x = apply_norm(model.final_norm, x, cfg.norm)
+    return logits_fn(model, cfg, x), _nest(cfg, new)

@@ -52,10 +52,22 @@ def test_cuda_kernels_match_plain(cuda_device):
                               (0, 10, 1, torch.float32)):
         ids = torch.from_numpy(np.sort(rng.integers(0, segs + 1, m))
                                .astype(np.int32)).to(cuda_device)
-        vals = torch.randn(m, f, device=cuda_device).to(dtype)
-        torch.testing.assert_close(
-            ops.segment_sum(vals, ids, segs, use_kernel=True),
-            ref.segment_sum(vals, ids, segs), rtol=1e-5, atol=1e-5)
+        vals = torch.from_numpy(rng.standard_normal((m, f)).astype(
+            np.float32)).to(cuda_device, dtype)
+        # both float32 sums against the exact one: a segment of the third
+        # case holds about 700 rows, whose running sum rounds at up to 2^-24
+        # of the absolute mass per add, so a fixed 1e-5 is below the plain
+        # version's own rounding there
+        keep = ids < segs
+        exact, mass = (torch.zeros((segs, f), dtype=torch.float64,
+                                   device=cuda_device)
+                       .index_add_(0, ids[keep].long(), x[keep].double())
+                       for x in (vals, vals.abs()))
+        limit = 1e-5 + 8 * 2.0 ** -24 * mass
+        for got in (ops.segment_sum(vals, ids, segs, use_kernel=True),
+                    ref.segment_sum(vals, ids, segs)):
+            assert got.dtype == torch.float32 and got.shape == (segs, f)
+            assert bool(((got.double() - exact).abs() <= limit).all())
 
 
 def test_sharded_views_on_card_equal_cpu(cuda_device):
@@ -71,3 +83,64 @@ def test_sharded_views_on_card_equal_cpu(cuda_device):
         for f in ("offsets", "src", "dst", "out_degree", "in_degree"):
             assert torch.equal(getattr(a, f).cpu(), getattr(w, f)), f
     assert ops.launch_counts()["liveness_mask"] > before
+
+
+def test_lru_scan_kernel_matches_plain(cuda_device):
+    rng = np.random.default_rng(1)
+    for B, S, C in ((1, 1, 1), (2, 37, 40), (3, 100, 64), (1, 513, 96)):
+        a = torch.from_numpy(rng.uniform(0.5, 0.999, (B, S, C))
+                             .astype(np.float32)).to(cuda_device)
+        b = torch.from_numpy(rng.standard_normal((B, S, C))
+                             .astype(np.float32)).to(cuda_device)
+        h0 = torch.from_numpy(rng.standard_normal((B, C))
+                              .astype(np.float32)).to(cuda_device)
+        for init in (None, h0):
+            torch.testing.assert_close(
+                ops.lru_scan(a, b, init, use_kernel=True),
+                ref.lru_scan(a, b, init), atol=1e-5, rtol=1e-4)
+
+
+def test_flash_attention_kernel_matches_plain(cuda_device):
+    rng = np.random.default_rng(2)
+    cases = ((1, 2, 2, 64, 16, None, torch.float32),
+             (2, 4, 2, 100, 64, None, torch.float32),    # ragged S
+             (1, 4, 1, 200, 32, 48, torch.float32),      # window, MQA
+             (1, 2, 1, 130, 128, 64, torch.bfloat16),
+             (1, 2, 1, 192, 256, 64, torch.bfloat16))
+    for B, Hq, Hkv, S, hd, window, dtype in cases:
+        q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                   .to(cuda_device, dtype)
+                   for s in ((B, Hq, S, hd), (B, Hkv, S, hd), (B, Hkv, S, hd)))
+        tol = 2e-4 if dtype == torch.float32 else 3e-2
+        for causal in (True, False):
+            got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                      use_kernel=True)
+            assert got.dtype == dtype
+            torch.testing.assert_close(
+                got.float(), ref.flash_attention(q, k, v, causal=causal,
+                                                 window=window).float(),
+                atol=tol, rtol=tol)
+
+
+def test_reduced_model_kernel_prefill_matches_plain(cuda_device):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import transformer as tf
+
+    cfg = reduced(get_config("recurrentgemma-2b"), num_layers=5)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    model = tf.init_params(cfg, gen, cuda_device)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32)).to(cuda_device)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        got, _ = tf.prefill(model, cfg, prompts)
+    counts = ops.launch_counts()
+    assert (counts["lru_scan"], counts["flash_attention"]) == (4, 1)
+    with torch.inference_mode():
+        want, _ = tf.prefill(model, cfg, prompts, use_kernel=False)
+    # bf16 activations: the two routes round at other places
+    torch.testing.assert_close(got, want, atol=3e-2, rtol=3e-2)
+    out = Server(cfg, model).generate(prompts.cpu().numpy(), 4)
+    assert out.shape == (2, 4) and ((out >= 0) & (out < cfg.vocab_size)).all()

@@ -30,9 +30,14 @@ def test_port_has_the_slice_modules():
               "kernels.ref", "kernels.snapshot_resolve", "kernels.segment_sum",
               "kernels.ops", "graph.dyngraph", "graph.compute",
               "train.checkpoint", "graph.wal", "graph.sharded", "graph.query",
-              "launch.serve_graph"):
+              "launch.serve_graph", "configs", "configs.base",
+              "configs.recurrentgemma_2b", "nn.layers", "nn.rope",
+              "kernels.lru_scan", "nn.recurrent", "kernels.flash_attention",
+              "nn.attention", "models.transformer", "models.params",
+              "launch.steps", "launch.serve"):
         assert f"repro_torch.{m}" in mods, m
-    for src in ("snapshot_resolve.cu", "segment_sum.cu"):
+    for src in ("snapshot_resolve.cu", "segment_sum.cu", "lru_scan.cu",
+                "flash_attention.cu"):
         assert (SRC / "repro_torch" / "csrc" / src).is_file()
 
 
