@@ -7,19 +7,26 @@ Phases, each printed with its wall time; any failure exits non-zero
 before the result lines:
 
 1. Device line (``nvidia-smi`` name and power limit) and the build of the
-   CUDA kernels from ``src/repro_torch/csrc``.
+   CUDA kernels from ``src/repro_torch/csrc``; the tensor-core attention
+   kernel must build without spills (``-Xptxas -v``) and hold HGMMA
+   instructions (``cuobjdump -sass``).
 2. Every kernel against its plain PyTorch version on the card, at the
    serving slice's shapes: ``liveness_mask`` (16,000,000 stamps, sentinel
    and clamped query included) and ``snapshot_resolve`` (4,000,000 x 4),
-   byte-equal; ``segment_sum`` at 1,000,000 x 16 bf16 (3e-2 relative).
-   Times are CUDA-event medians of 20 runs after warm-up.
+   byte-equal; ``segment_sum`` at 1,000,000 x 16 bf16 (3e-2 relative), and
+   on edge cases against the float64 sum (hub segments over three chunks,
+   empty segments at the head, middle and tail, phantom rows, m not a
+   multiple of 4, F = 3, ids and values one row off their allocations).
+   Times are CUDA-event medians of 20 runs after warm-up; ``device_ms`` is
+   the kernel's own time from ``torch.profiler``, ``host_ms`` the
+   wrapper's host time per call.
 3. The serving slice, driven as ``python -m repro_torch.launch.serve_graph``
    drives it: 1,048,576 vertices in 4 shards on the card, a 16-epoch churn
    stream of 1,000,000 adds per epoch with ``delete_frac=0.2`` (seed 0), 16
    demo queries per epoch through ``GraphQueryServer``, PageRank prewarmed
    every epoch (tol 1e-6, max_iter 200). Launch counts are reset just
    before and read just after; the snapshot-mask and segment-sum kernels
-   must have run. The last epoch's window is answered again with the
+   must have run, ``segment_sum`` once per PageRank iteration. The last epoch's window is answered again with the
    plain versions on the card: k-hop, reachability and top-k byte-equal,
    PageRank within atol 1e-6. Then ``segment_sum`` at the final
    snapshot's shape (m = its live edges, n = 1,048,576, F = 1 float32,
@@ -33,7 +40,8 @@ before the result lines:
    4096 prompt tokens (NumPy seed 0) with 32 greedy tokens each. Launch
    counts are reset just before and read just after: ``lru_scan`` must
    have run exactly 18 times (one per RG-LRU layer) and
-   ``flash_attention`` exactly 8 (one per local-attention layer). Then
+   ``flash_attention`` exactly 8 (one per local-attention layer), all 8 on
+   its tensor-core (``wgmma``) route. Then
    each layer's mixer runs through the kernels and through the plain
    versions on the same input (the plain route's hidden state): its
    output must agree within ``MIXER_RTOL`` and each RG-LRU state within
@@ -47,15 +55,19 @@ before the result lines:
 Phase 2 also holds the model kernels against their plain versions at the
 slice's shapes: ``lru_scan`` at (8, 4096, 2560) with and without ``h0``
 and at (2, 1000, 2560) (atol 1e-5, rtol 1e-4); ``flash_attention`` at
-(8, 10, 1, 4096, 256) with window 2048 in float32 (2e-4: the window edge
-and the tile skipping at the serving shape) and in bf16 (1e-2), without
-the window in bf16 (1e-2), and at (1, 8, 2, 1024, 128) float32 (2e-4).
+(8, 10, 1, 4096, 256) with window 2048 in bf16 (1e-2, the ``wgmma`` route)
+and in float32 (2e-4, the ``simt`` route: the window edge and the tile
+skipping at the serving shape), without the window in bf16 (1e-2), at
+(1, 8, 2, 1024, 128) float32 (2e-4), and in bf16 at (1, 8, 2, 1000, 128)
+with window 300 (ragged S, a window off the tile grid, GQA 4) and at
+(2, 4, 4, 4097, 64) causal (1e-2 each).
 
 The lines before the last are the checks off the main path's shapes as
 JSON (``{"checks": [...]}``), the card, and the kernel table as JSON (one
 row per kernel, at the shape its main path runs, with that run's
-launches); the last line is ``{"ok": true, "device": {...}}``. Imports
-nothing of JAX or ``repro``.
+launches; ``route`` is the language, ``kernel_route`` which of the
+wrapper's kernels ran); the last line is ``{"ok": true, "device":
+{...}}``. Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
 
@@ -144,15 +156,99 @@ def bound(nbytes: float, ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def device_ms(torch, fn, kernel: str, reps: int = 10) -> float | None:
+    """The kernel's own device time per launch in ms, from ``torch.profiler``
+    over ``reps`` calls of ``fn`` after a warm-up. Fails if anything else ran
+    on the card in that window (every device event must be a kernel whose
+    name holds ``kernel``) or if there were more launches than calls: one
+    launch per call, no helper kernels, no copies. None when the profiler
+    records no device activity (then the row says "not measured"). The
+    profiler may drop the window's first launch, so the time is averaged
+    over the launches it saw."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    if not on_card:
+        return None
+    others = [e.key for e in on_card if kernel not in e.key]
+    check(not others, f"{kernel}: other device work in its window: {others}")
+    launches = sum(e.count for e in on_card)
+    check(launches <= reps, f"{kernel}: {launches} launches in {reps} calls")
+    return sum(e.self_device_time_total for e in on_card) / launches / 1e3
+
+
+def host_ms(torch, fn, reps: int = 200) -> float:
+    """Host time per call of ``fn`` in ms (the wrapper's checks, ctypes call
+    and launch), measured without waiting for the card, then drained."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    elapsed = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return elapsed / reps * 1e3
+
+
 def kernel_row(name, source, replaces, *, max_abs_err, ms, plain_ms,
                nbytes, ops, library_ms, shape,
-               ops_per_s: float = FP32_OPS_PER_S) -> dict:
+               ops_per_s: float = FP32_OPS_PER_S, kernel_route: str = "cuda",
+               dev_ms=None, host=None) -> dict:
+    """One row of the kernels table. ``route`` is the language (CUDA C++);
+    ``kernel_route`` names which of a wrapper's kernels ran (``wgmma`` or
+    ``simt`` for flash_attention, ``cuda`` where there is one kernel)."""
     b_ms, b_by = bound(nbytes, ops, ops_per_s)
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": None,
-            "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+    return {"name": name, "route": "cuda", "kernel_route": kernel_route,
+            "source": source, "replaces": replaces, "launches": None,
+            "max_abs_err": max_abs_err, "ms": ms, "device_ms": dev_ms,
+            "host_ms": host, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
             "shape": shape}
+
+
+# --------------------------------------------------------------- phase 1
+def check_tensor_core_build() -> dict:
+    """The tensor-core attention kernel as built: ``-Xptxas -v`` must report
+    no spills for any of its instances, and ``cuobjdump -sass`` of the
+    library must show HGMMA (wgmma) instructions in each."""
+    import re
+
+    from repro_torch.kernels import _lib
+
+    kernel = "flash_attention_wgmma_kernel"
+    log = _lib.build_log()
+    ptxas, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+        elif name and ("spill" in line or "Used" in line):
+            ptxas.setdefault(name, []).append(line.strip())
+    check(ptxas, f"no ptxas report for {kernel} in the build log")
+    for fn, lines in ptxas.items():
+        check(any("0 bytes spill stores, 0 bytes spill loads" in x
+                  for x in lines), f"{fn} spills: {lines}")
+    cuobjdump = pathlib.Path(_lib.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_lib.build())],
+                          capture_output=True, text=True, timeout=300)
+    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr[-500:]}")
+    hgmma, name = {}, None
+    for line in sass.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+        elif name and "HGMMA" in line:
+            hgmma[name] = hgmma.get(name, 0) + 1
+    check(len(hgmma) == len(ptxas),
+          f"HGMMA in {len(hgmma)} of {len(ptxas)} {kernel} instances")
+    return {"ptxas": {k[-60:]: v for k, v in ptxas.items()},
+            "hgmma": {k[-60:]: v for k, v in hgmma.items()}}
 
 
 # --------------------------------------------------------------- phase 2
@@ -182,14 +278,16 @@ def check_stamp_kernels(torch) -> list[dict]:
         torch.cuda.synchronize()
         check(got.dtype == want.dtype and torch.equal(got, want),
               f"liveness_mask differs from its plain version at q={q}")
-    ms = cuda_ms(torch, lambda: ops.liveness_mask(created, deleted, q_mid,
-                                                  use_kernel=True))
+    def mask():
+        return ops.liveness_mask(created, deleted, q_mid, use_kernel=True)
+    ms = cuda_ms(torch, mask)
+    mask_dev = device_ms(torch, mask, "liveness_mask")
     plain = cuda_ms(torch, lambda: ref.liveness_mask(created, deleted, q_mid))
     rows = [kernel_row(
         "liveness_mask", "src/repro_torch/csrc/snapshot_resolve.cu",
         "src/repro/kernels/snapshot_resolve.py:78", max_abs_err=0.0,
         ms=ms, plain_ms=plain, nbytes=9 * MASK_N, ops=3 * MASK_N,
-        library_ms=None, shape=f"N={MASK_N}")]
+        library_ms=None, shape=f"N={MASK_N}", dev_ms=mask_dev)]
     del created, deleted, never, epoch
 
     # (N, K) ascending version rows, int32-max padded past a random fill
@@ -209,8 +307,10 @@ def check_stamp_kernels(torch) -> list[dict]:
     check(torch.equal(got_v, want_v) and torch.equal(got_i, want_i),
           "snapshot_resolve differs from its plain version")
     resolved = int((want_i >= 0).sum())
-    ms = cuda_ms(torch, lambda: ops.snapshot_resolve(versions, values, q,
-                                                     use_kernel=True))
+    def resolve():
+        return ops.snapshot_resolve(versions, values, q, use_kernel=True)
+    ms = cuda_ms(torch, resolve)
+    resolve_dev = device_ms(torch, resolve, "snapshot_resolve")
     plain = cuda_ms(torch, lambda: ref.snapshot_resolve(versions, values, q))
     # versions read once, one value per resolved item, value + index out
     nbytes = RESOLVE_N * RESOLVE_K * 4 + resolved * 4 + RESOLVE_N * 8
@@ -219,7 +319,7 @@ def check_stamp_kernels(torch) -> list[dict]:
         "src/repro/kernels/snapshot_resolve.py:39", max_abs_err=0.0,
         ms=ms, plain_ms=plain, nbytes=nbytes,
         ops=RESOLVE_N * RESOLVE_K, library_ms=None,
-        shape=f"N={RESOLVE_N},K={RESOLVE_K},float32"))
+        shape=f"N={RESOLVE_N},K={RESOLVE_K},float32", dev_ms=resolve_dev))
     return rows
 
 
@@ -235,8 +335,11 @@ def check_segment_sum(torch, name, values, ids, n, rtol) -> dict:
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
     check(err <= rtol * max(scale, 1e-30),
           f"{name}: max |kernel - plain| {err} exceeds {rtol} x {scale}")
-    ms = cuda_ms(torch, lambda: ops.segment_sum(values, ids, n,
-                                                use_kernel=True))
+    def kernel():
+        return ops.segment_sum(values, ids, n, use_kernel=True)
+    ms = cuda_ms(torch, kernel)
+    dev = device_ms(torch, kernel, "segment_sum")
+    host = host_ms(torch, kernel)
     plain = cuda_ms(torch, lambda: ref.segment_sum(values, ids, n))
     valid = int(((ids >= 0) & (ids < n)).sum())
     lengths = torch.bincount(ids[:valid].long(), minlength=n)
@@ -249,7 +352,75 @@ def check_segment_sum(torch, name, values, ids, n, rtol) -> dict:
         name, "src/repro_torch/csrc/segment_sum.cu",
         "src/repro/kernels/segment_sum.py:50", max_abs_err=err, ms=ms,
         plain_ms=plain, nbytes=nbytes, ops=valid * f, library_ms=library,
-        shape=f"m={m},n={n},F={f},{str(values.dtype).split('.')[-1]}")
+        shape=f"m={m},n={n},F={f},{str(values.dtype).split('.')[-1]}",
+        dev_ms=dev, host=host)
+
+
+def segment_sum_edge_cases(np, rng):
+    """(name, ids, values, n) that pin the one-pass kernel's ownership rule
+    (float32 values, float64 for the exact sum): hub segments longer than
+    three 2,048-row chunks, empty segments at the head, the middle and the
+    tail, rows in the phantom segment n, m not a multiple of 4, and F > 1."""
+    n = 1000
+    ids = np.concatenate([
+        np.full(3, 7),                    # ids 0-6 empty: the head
+        np.full(13_001, 8),               # a hub over four chunks
+        np.repeat(np.arange(9, 300), 5),  # short segments
+        np.full(20_000, 310),             # ids 300-309 empty; another hub
+        np.arange(320, 900, 2),           # every other id empty
+        np.full(37, n),                   # the phantom segment
+    ]).astype(np.int32)                   # ids 899-999 empty: the tail
+    assert len(ids) % 4 != 0
+    cases = []
+    for f in (1, 3):
+        vals = rng.standard_normal((len(ids), f))
+        cases.append((f"edges F={f}", ids, vals, n))
+    sparse = np.sort(rng.choice(50_000, 9_999, replace=False)).astype(np.int32)
+    cases.append(("sparse ids, n past the last id", sparse,
+                  rng.standard_normal((len(sparse), 1)), 60_000))
+    return cases
+
+
+def check_segment_sum_edges(torch) -> list[dict]:
+    """The edge cases against the float64 sum on the card, within 1e-5 +
+    8 x 2^-24 of each segment's absolute mass (both float32 sums round at
+    up to 2^-24 of that mass per add, see tests/test_torch_cuda.py), for
+    aligned inputs and for ids and values one row off their allocations
+    (16-byte loads then start mid-line). Returns one check per case."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(SEED + 4)
+
+    def one_row_off(t):
+        """The same values in a view one row past its allocation's start."""
+        return torch.cat([t[:1], t])[1:]
+
+    out = []
+    for name, ids, vals, n in segment_sum_edge_cases(np, rng):
+        m, f = vals.shape
+        ids_t = torch.from_numpy(ids).cuda()
+        vals_t = torch.from_numpy(vals.astype(np.float32)).cuda()
+        keep = (ids_t >= 0) & (ids_t < n)
+        exact, mass = (torch.zeros((n, f), dtype=torch.float64, device="cuda")
+                       .index_add_(0, ids_t[keep].long(), x[keep])
+                       for x in (vals_t.double(), vals_t.double().abs()))
+        limit = 1e-5 + 8 * 2.0 ** -24 * mass
+        for off_ids, off_vals in ((0, 0), (1, 1), (0, 1), (1, 0)):
+            i = one_row_off(ids_t) if off_ids else ids_t
+            v = one_row_off(vals_t) if off_vals else vals_t
+            got = ops.segment_sum(v, i, n, use_kernel=True)
+            torch.cuda.synchronize()
+            err = (got.double() - exact).abs()
+            check(got.shape == (n, f) and bool((err <= limit).all()),
+                  f"segment_sum {name} (ids offset {off_ids}, values offset "
+                  f"{off_vals} rows): max error {float(err.max())}")
+            out.append({"name": "segment_sum", "case": name,
+                        "ids_offset_rows": off_ids,
+                        "values_offset_rows": off_vals, "m": m, "n": n,
+                        "F": f, "max_abs_err": float(err.max())})
+    return out
 
 
 def check_segment_sum_bf16(torch) -> dict:
@@ -288,6 +459,8 @@ def check_lru_scan(torch) -> dict:
         errs[(shape, with_h0)] = err
         if shape == LRU_SHAPE and not with_h0:
             ms = cuda_ms(torch, lambda: ops.lru_scan(a, b, use_kernel=True))
+            dev = device_ms(torch, lambda: ops.lru_scan(a, b, use_kernel=True),
+                            "lru_scan")
             plain = cuda_ms(torch, lambda: ref.lru_scan(a, b), reps=5,
                             warmup=1)
             row_err = err
@@ -299,7 +472,7 @@ def check_lru_scan(torch) -> dict:
         "lru_scan", "src/repro_torch/csrc/lru_scan.cu",
         "src/repro/kernels/lru_scan.py:52", max_abs_err=row_err, ms=ms,
         plain_ms=plain, nbytes=12 * n, ops=2 * n, library_ms=None,
-        shape=f"B={B},S={S},C={C},float32")
+        shape=f"B={B},S={S},C={C},float32", dev_ms=dev)
 
 
 def causal_pairs(S: int, window) -> int:
@@ -309,15 +482,26 @@ def causal_pairs(S: int, window) -> int:
     return window * (window + 1) // 2 + (S - window) * window
 
 
+FLASH_SOURCES = {"wgmma": ("src/repro_torch/csrc/flash_attention_sm90.cu",
+                            "flash_attention_wgmma_kernel"),
+                 "simt": ("src/repro_torch/csrc/flash_attention.cu",
+                          "flash_attention_kernel")}
+
+
 def check_flash_attention(torch) -> tuple[dict, list[dict]]:
-    """flash_attention against its plain version (the full S x S softmax)
-    and timed beside scaled_dot_product_attention with the same mask.
-    Returns the row at the main path's shape (bf16, window 2048) and the
-    rows of the other cases. The float32 case at that shape pins the
-    window edge and the kv-tile skipping: the kernel computes in float32
-    for both dtypes, so only the inputs' rounding differs from bf16."""
+    """flash_attention against its plain version (the full S x S softmax in
+    float32) and timed beside scaled_dot_product_attention with the same
+    mask. Returns the row at the main path's shape (bf16, window 2048) and
+    the rows of the other cases. Each case must launch the route that
+    ``route(dtype, hd)`` names: bf16 at hd 64-256 the tensor-core kernel
+    (``wgmma``, P rounded to bf16 before the product with v, so 1e-2), the
+    float32 cases the CUDA-core kernel (``simt``, float32 throughout, so
+    2e-4; at the serving shape it pins the window edge and the kv-tile
+    skipping). The bf16 edge cases: a ragged S with a window that is not a
+    multiple of the tile and GQA 4, and S = 4097, one row past a tile."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
 
     g = torch.Generator(device="cuda")
@@ -326,14 +510,21 @@ def check_flash_attention(torch) -> tuple[dict, list[dict]]:
     cases = ((FLASH_SHAPE, torch.bfloat16, FLASH_WINDOW, 1e-2),
              (FLASH_SHAPE, torch.float32, FLASH_WINDOW, 2e-4),
              (FLASH_SHAPE, torch.bfloat16, None, 1e-2),
-             ((1, 8, 2, 1024, 128), torch.float32, None, 2e-4))
+             ((1, 8, 2, 1024, 128), torch.float32, None, 2e-4),
+             ((1, 8, 2, 1000, 128), torch.bfloat16, 300, 1e-2),
+             ((2, 4, 4, 4097, 64), torch.bfloat16, None, 1e-2))
     for (B, Hq, Hkv, S, hd), dtype, window, tol in cases:
         q = torch.randn((B, Hq, S, hd), generator=g, device="cuda").to(dtype)
         k = torch.randn((B, Hkv, S, hd), generator=g, device="cuda").to(dtype)
         v = torch.randn((B, Hkv, S, hd), generator=g, device="cuda").to(dtype)
+        which = fa.route(dtype, hd)
+        ops.reset_launch_counts()
         got = ops.flash_attention(q, k, v, window=window, use_kernel=True)
         want = ref.flash_attention(q, k, v, window=window)
         torch.cuda.synchronize()
+        check(ops.route_counts()["flash_attention"][which] == 1,
+              f"flash_attention {tuple(q.shape)} {dtype}: did not launch the "
+              f"{which} route ({ops.route_counts()})")
         err = float((got.float() - want.float()).abs().max())
         check(got.dtype == dtype and bool(torch.isfinite(got).all()),
               f"flash_attention {tuple(q.shape)}: dtype or non-finite")
@@ -341,11 +532,17 @@ def check_flash_attention(torch) -> tuple[dict, list[dict]]:
                                   rtol=tol)),
               f"flash_attention {tuple(q.shape)} window={window}: max "
               f"|kernel - plain| {err} over {tol}")
-        ms = cuda_ms(torch, lambda: ops.flash_attention(
-            q, k, v, window=window, use_kernel=True), reps=10)
+        del want
+
+        def kernel():
+            return ops.flash_attention(q, k, v, window=window,
+                                       use_kernel=True)
+        source, name = FLASH_SOURCES[which]
+        ms = cuda_ms(torch, kernel, reps=10)
+        dev = device_ms(torch, kernel, name, reps=5)
+        host = host_ms(torch, kernel, reps=20)
         plain = cuda_ms(torch, lambda: ref.flash_attention(
             q, k, v, window=window), reps=5, warmup=1)
-        del want
         # the library yardstick: SDPA over kv heads expanded to Hq, with
         # the same boolean mask (timed only; the port never calls it)
         ke = k.repeat_interleave(Hq // Hkv, dim=1)
@@ -363,14 +560,14 @@ def check_flash_attention(torch) -> tuple[dict, list[dict]]:
         esize = q.element_size()
         nbytes = esize * (2 * B * Hq * S * hd + 2 * B * Hkv * S * hd)
         rows.append(kernel_row(
-            "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+            "flash_attention", source,
             "src/repro/kernels/flash_attention.py:78", max_abs_err=err,
             ms=ms, plain_ms=plain, nbytes=nbytes, ops=4 * hd * pairs,
             library_ms=library,
             shape=f"B={B},Hq={Hq},Hkv={Hkv},S={S},hd={hd},"
                   f"{str(dtype).split('.')[-1]},window={window}",
             ops_per_s=BF16_TC_OPS_PER_S if dtype == torch.bfloat16
-            else FP32_OPS_PER_S))
+            else FP32_OPS_PER_S, kernel_route=which, dev_ms=dev, host=host))
         del q, k, v, ke, ve, got
     return rows[0], rows[1:]
 
@@ -438,6 +635,31 @@ def serve_stream(torch, device: str, n: int, epochs: int, adds: int, *,
     return {"windows": windows, "stats": stats, "stream_s": t_stream,
             "step_s": step_s, "window_s": window_s, "graph": sg,
             "server": server}
+
+
+class counting_pagerank:
+    """Within ``with``, sums the iterations of the PageRank runs that take
+    the kernel route (``use_kernel`` not False): on the card each iteration
+    is one ``segment_sum`` launch."""
+
+    def __enter__(self):
+        import threading
+
+        from repro_torch.graph import compute as gc
+        self.gc, self.real, self.iterations = gc, gc.pagerank, 0
+        lock = threading.Lock()
+
+        def counted(*args, **kw):
+            res = self.real(*args, **kw)
+            if kw.get("use_kernel") is not False:
+                with lock:
+                    self.iterations += res.iterations
+            return res
+        gc.pagerank = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.gc.pagerank = self.real
 
 
 def same_answer(np, a, b) -> bool:
@@ -543,6 +765,7 @@ def serve_model(torch, cfg, device: str = "cuda",
     out = server.generate(prompts, gen)
     sync(torch, device)
     counts = ops.launch_counts()
+    routes = ops.route_counts()["flash_attention"]
     kinds = [k for _, k in model.blocks()]
     on_card = device == "cuda"
     want = {"lru_scan": kinds.count("rglru") if on_card else 0,
@@ -551,11 +774,15 @@ def serve_model(torch, cfg, device: str = "cuda",
     for name, n in want.items():
         check(counts[name] == n,
               f"{name} launched {counts[name]} times, expected {n}")
+    # bf16 at head dim 256: every attention layer takes the tensor cores
+    check(routes["wgmma"] == want["flash_attention"],
+          f"flash_attention routes {routes}, expected "
+          f"{want['flash_attention']} wgmma launches")
     check(out.shape == (requests, gen) and out.dtype == np.int32
           and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
           f"generated tokens of shape {out.shape}, dtype {out.dtype}")
     return {"cfg": cfg, "model": model, "prompts": prompts, "out": out,
-            "counts": counts, "init_s": init_s, "timings": server.timings,
+            "counts": counts, "routes": routes, "init_s": init_s, "timings": server.timings,
             "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
                          if on_card else None),
             "params": sum(p.numel() for p in model.parameters())}
@@ -611,11 +838,11 @@ def check_layers_against_plain(torch, run: dict) -> dict:
     model path calls them) and through the plain versions, both fed the
     plain route's hidden state, so that no error carries over from the
     layers before. Both round their bf16 output once from float32 values
-    that differ in the last bits (the attention probabilities kept in
-    float32 against rounded to bf16; the scan's one FMA against a product
-    and a sum), so the outputs may differ by one bf16 step (2^-8 of the
-    largest magnitude): MIXER_RTOL allows 2.5 steps. The RG-LRU state is the scan's float32 output, held to
-    STATE_RTOL. Planted faults in the first layer of each kind must
+    that differ in the last bits (the attention's float32 sums taken in
+    another order and its bf16 probabilities rounded from them; the scan's
+    one FMA against a product and a sum), so the outputs may differ by one
+    bf16 step (2^-8 of the largest magnitude): MIXER_RTOL allows 2.5 steps.
+    The RG-LRU state is the scan's float32 output, held to STATE_RTOL. Planted faults in the first layer of each kind must
     exceed the limits."""
     from repro_torch.models import transformer as tf
     from repro_torch.nn import attention as attn
@@ -683,9 +910,10 @@ def check_model_against_plain(torch, run: dict, gen: int = MODEL_GEN,
                               rtol: float = MODEL_RTOL) -> dict:
     """The prefill through the kernels against the same prefill through the
     plain versions, both on the card in bf16. The two routes round at other
-    places (the kernel keeps attention probabilities in float32 where the
-    plain route rounds them to bf16 before the product with v; the scan's
-    FMA rounds once where the plain loop rounds twice); the differences
+    places (both round the attention probabilities to bf16 before the
+    product with v, but from float32 sums taken in another order; the
+    scan's FMA rounds once where the plain loop rounds twice); the
+    differences
     enter the bf16 residual stream and grow over 26 layers, so each tensor
     is held to MODEL_RTOL of its largest magnitude."""
     from repro_torch.models import transformer as tf
@@ -748,12 +976,14 @@ def main() -> int:
     _lib.load()
     log(f"phase 1 build: {time.perf_counter() - t:.3f} s "
         f"(nvcc {_lib.build_seconds})")
+    log(f"phase 1 tensor-core kernel: {json.dumps(check_tensor_core_build())}")
 
     t = time.perf_counter()
     # rows: each kernel at the shape its main path runs; extra: the other
     # shapes and dtypes it is held at, off the main path
     rows = check_stamp_kernels(torch)
     extra = [check_segment_sum_bf16(torch)]
+    extra.extend(check_segment_sum_edges(torch))
     rows.append(check_lru_scan(torch))
     fa_row, fa_extra = check_flash_attention(torch)
     rows.append(fa_row)
@@ -764,20 +994,26 @@ def main() -> int:
     checks: dict = {}
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    run = serve_stream(torch, "cuda", N_VERTICES, EPOCHS, ADDS_PER_EPOCH,
-                       on_last_window=recheck_last_window(torch, checks))
+    with counting_pagerank() as pagerank_runs:
+        run = serve_stream(torch, "cuda", N_VERTICES, EPOCHS, ADDS_PER_EPOCH,
+                           on_last_window=recheck_last_window(torch, checks))
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     slice_s = time.perf_counter() - t
     check(counts["liveness_mask"] > 0, "serving never launched liveness_mask")
     check(counts["segment_sum"] > 0, "serving never launched segment_sum")
+    # one launch per PageRank iteration: no second pass, no helper kernel
+    check(counts["segment_sum"] == pagerank_runs.iterations,
+          f"segment_sum launched {counts['segment_sum']} times in "
+          f"{pagerank_runs.iterations} PageRank iterations")
     st = run["stats"]
     view = run["graph"].join_view(run["graph"].latest_sealed())
     log(f"phase 3 slice: {slice_s:.3f} s (stream {run['stream_s']:.3f} s, "
         f"steps {sum(run['step_s']):.3f} s, windows "
         f"{sum(run['window_s']):.3f} s); served {st.served} queries, "
         f"p50 {st.query_p50_s * 1e3:.3f} ms, p99 {st.query_p99_s * 1e3:.3f}"
-        f" ms; final snapshot m={view.m}; peak device memory "
+        f" ms; {pagerank_runs.iterations} PageRank iterations through the "
+        f"kernels; final snapshot m={view.m}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches "
         f"{counts}; recheck {checks}")
     log("phase 3 per-epoch step s: "
@@ -810,7 +1046,8 @@ def main() -> int:
         f" tokens/s decode, "
         f"{tokens / (tm['prefill_s'] + tm['decode_s']):.1f} tokens/s "
         f"end to end); peak device memory {model_run['peak_gib']:.3f} GiB; "
-        f"launches {model_counts}")
+        f"launches {model_counts}, flash_attention routes "
+        f"{model_run['routes']}")
     t_layers = time.perf_counter()
     layers = check_layers_against_plain(torch, model_run)
     log(f"phase 5 layer by layer, kernel vs plain mixer on the same input: "

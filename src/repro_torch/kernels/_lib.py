@@ -4,12 +4,16 @@ The sources under ``src/repro_torch/csrc/`` have a plain C interface. At
 first use they are compiled with ``nvcc`` for ``sm_90a`` (one ``nvcc``
 process per source, all started together), linked into one shared library
 under ``build/repro_torch/`` at the repository root, and loaded with
-``ctypes``. The library's file name carries a hash of the sources and
-flags, so an edited source rebuilds and an unchanged one loads the library
-already built. Nothing is compiled or loaded at import time.
+``ctypes``. The library's file name carries a hash of the sources, of
+every header under ``csrc/`` and of the compile and link flags, so an
+edited source or header rebuilds and an unchanged tree loads the library
+already built. The compiler's output (``-Xptxas -v``: registers, shared
+memory and spills of every kernel) is kept beside the library as
+``<library>.log``. Nothing is compiled or loaded at import time.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -24,10 +28,11 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("snapshot_resolve.cu", "segment_sum.cu", "lru_scan.cu",
-           "flash_attention.cu")
+           "flash_attention.cu", "flash_attention_sm90.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-shared",)
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -44,13 +49,15 @@ _SIGNATURES = {
     "rt_snapshot_resolve": (ctypes.c_int, [_P, _P, ctypes.c_int, ctypes.c_int,
                                            _P, _P, ctypes.c_longlong,
                                            ctypes.c_int, _P]),
-    "rt_segment_sum": (ctypes.c_int, [_P, ctypes.c_int, _P, _P, _P,
+    "rt_segment_sum": (ctypes.c_int, [_P, ctypes.c_int, _P, _P,
                                       ctypes.c_longlong, ctypes.c_longlong,
                                       ctypes.c_int, _P]),
     "rt_lru_scan": (ctypes.c_int, [_P, _P, _P, _P, ctypes.c_longlong,
                                    ctypes.c_longlong, ctypes.c_longlong, _P]),
     "rt_flash_attention": (ctypes.c_int, [_P, _P, _P, _P] + [ctypes.c_int] * 8
                            + [ctypes.c_float, _P]),
+    "rt_flash_attention_sm90": (ctypes.c_int, [_P, _P, _P, _P]
+                                + [ctypes.c_int] * 7 + [ctypes.c_float, _P]),
 }
 
 
@@ -71,11 +78,14 @@ def nvcc() -> str:
     return found
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+def _digest(csrc: pathlib.Path = CSRC) -> str:
+    """Hash of what the library is built from: the compile and link flags,
+    the sources and every header under ``csrc``."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + ("|",) + LINK_FLAGS).encode())
+    headers = sorted(p.name for p in csrc.glob("*.cuh"))
+    for name in (*SOURCES, *headers):
         h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+        h.update((csrc / name).read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -97,20 +107,23 @@ def build() -> pathlib.Path:
             procs.append((name, subprocess.Popen(
                 [exe, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-        errors = []
+        errors, logs = [], []
         for name, p in procs:
             out, _ = p.communicate()
+            text = out.decode(errors="replace")
+            logs.append(f"== {name}\n{text}")
             if p.returncode:
-                errors.append(f"{name}:\n{out.decode(errors='replace')}")
+                errors.append(f"{name}:\n{text}")
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
         tmp_so = pathlib.Path(tmp) / so.name
         link = subprocess.run(
-            [exe, *NVCC_FLAGS, "-shared", "-o", str(tmp_so), *objs],
+            [exe, *NVCC_FLAGS, *LINK_FLAGS, "-o", str(tmp_so), *objs],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         if link.returncode:
             raise RuntimeError("nvcc link failed:\n"
                                + link.stdout.decode(errors="replace"))
+        so.with_suffix(".log").write_text("\n".join(logs))
         os.replace(tmp_so, so)
     build_seconds = time.perf_counter() - t0
     return so
@@ -135,6 +148,20 @@ def check(code: int, kernel: str) -> None:
     if code:
         msg = load().rt_error_string(code).decode(errors="replace")
         raise RuntimeError(f"{kernel}: CUDA error {code} ({msg})")
+
+
+def build_log() -> str:
+    """What ``nvcc`` printed when it built the current library."""
+    log = BUILD_DIR / f"librepro_torch_kernels_{_digest()}.log"
+    return log.read_text() if log.exists() else ""
+
+
+def on_device(t: torch.Tensor):
+    """``torch.cuda.device(t.device)``, or nothing when ``t`` already lies
+    on the current device: the guard costs host time on every launch."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -35,7 +35,7 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor,
     out = torch.empty_like(a)
     if a.numel():
         lib = _lib.load()
-        with torch.cuda.device(a.device):
+        with _lib.on_device(a):
             code = lib.rt_lru_scan(
                 a.data_ptr(), b.data_ptr(),
                 None if h0 is None else h0.data_ptr(), out.data_ptr(),

@@ -79,6 +79,13 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 
+def route_counts() -> dict[str, dict[str, int]]:
+    """Launches per route of the wrappers that have more than one kernel
+    (``flash_attention``: ``wgmma`` and ``simt``) since the last reset."""
+    return {"flash_attention": dict(_fa.flash_attention.route_launches)}
+
+
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS.values():
         fn.launches = 0
+    _fa.flash_attention.route_launches = dict.fromkeys(_fa.ROUTES, 0)

@@ -1,14 +1,15 @@
 """CUDA wrapper: sorted segment sum (the join-group-by hot spot).
 
-The kernels are in ``csrc/segment_sum.cu``: one pass over the ascending
-ids finds each segment's row range, then a team of lanes per segment
-reduces it (the file's header says what bounds them on an H100). The
-plain version is in :mod:`repro_torch.kernels.ref`.
+The kernel is in ``csrc/segment_sum.cu``: one launch, one pass over the
+ids and values, no scratch; each block (F = 1) or warp (F > 1) owns the
+segments that start in its chunk of rows (the file's header says what
+bounds it on an H100). The plain version is in
+:mod:`repro_torch.kernels.ref`.
 
 The wrapper takes CUDA tensors only, checks device, dtype, shape and
-contiguity, allocates the output and the row-range scratch, launches on
-PyTorch's current stream, raises on a launch error, and adds one to
-``segment_sum.launches`` per call that launches.
+contiguity, allocates the output, launches once on PyTorch's current
+stream, raises on a launch error, and adds one to ``segment_sum.launches``
+per call that launches.
 """
 from __future__ import annotations
 
@@ -37,14 +38,12 @@ def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
     f = values.shape[1]
     out = torch.empty((n, f), dtype=torch.float32, device=values.device)
     if n and f:
-        # scratch: row range of segment s is [starts[s], starts[s + 1])
-        starts = torch.empty(n + 1, dtype=torch.int64, device=values.device)
         lib = _lib.load()
-        with torch.cuda.device(values.device):
+        with _lib.on_device(values):
             code = lib.rt_segment_sum(
                 values.data_ptr(), _DTYPES[values.dtype],
-                segment_ids.data_ptr(), starts.data_ptr(), out.data_ptr(),
-                values.shape[0], n, f, _lib.stream_of(values))
+                segment_ids.data_ptr(), out.data_ptr(), values.shape[0], n,
+                f, _lib.stream_of(values))
         _lib.check(code, "segment_sum")
         segment_sum.launches += 1
     return out

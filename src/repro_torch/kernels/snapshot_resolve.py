@@ -32,7 +32,7 @@ def liveness_mask(created: torch.Tensor, deleted: torch.Tensor,
     out = torch.empty(n, dtype=torch.bool, device=created.device)
     if n:
         lib = _lib.load()
-        with torch.cuda.device(created.device):
+        with _lib.on_device(created):
             code = lib.rt_liveness_mask(
                 created.data_ptr(), deleted.data_ptr(), q, out.data_ptr(), n,
                 _lib.stream_of(created))
@@ -60,7 +60,7 @@ def snapshot_resolve(versions: torch.Tensor, values: torch.Tensor,
     index = torch.empty(n, dtype=torch.int32, device=values.device)
     if n:
         lib = _lib.load()
-        with torch.cuda.device(values.device):
+        with _lib.on_device(values):
             code = lib.rt_snapshot_resolve(
                 versions.data_ptr(), values.data_ptr(),
                 _RESOLVE_DTYPES[values.dtype], q, out.data_ptr(),

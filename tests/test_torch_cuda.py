@@ -144,3 +144,56 @@ def test_reduced_model_kernel_prefill_matches_plain(cuda_device):
     torch.testing.assert_close(got, want, atol=3e-2, rtol=3e-2)
     out = Server(cfg, model).generate(prompts.cpu().numpy(), 4)
     assert out.shape == (2, 4) and ((out >= 0) & (out < cfg.vocab_size)).all()
+
+
+def test_flash_attention_routes_match_plain(cuda_device):
+    """The bf16 edge cases chip_smoke.py holds at 1e-2, on the tensor-core
+    route: ragged S with a window off the tile grid and GQA 4, and S one
+    row past a tile; plus a float32 case on the CUDA-core route."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(5)
+    cases = ((1, 8, 2, 1000, 128, 300, torch.bfloat16, 1e-2),
+             (2, 4, 4, 4097, 64, None, torch.bfloat16, 1e-2),
+             (1, 2, 1, 300, 256, 100, torch.bfloat16, 1e-2),
+             (1, 4, 2, 300, 64, 100, torch.float32, 2e-4))
+    for B, Hq, Hkv, S, hd, window, dtype, tol in cases:
+        q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                   .to(cuda_device, dtype)
+                   for s in ((B, Hq, S, hd), (B, Hkv, S, hd), (B, Hkv, S, hd)))
+        ops.reset_launch_counts()
+        got = ops.flash_attention(q, k, v, window=window, use_kernel=True)
+        routes = ops.route_counts()["flash_attention"]
+        assert routes[fa.route(dtype, hd)] == 1 and sum(routes.values()) == 1
+        torch.testing.assert_close(
+            got.float(), ref.flash_attention(q, k, v, window=window).float(),
+            atol=tol, rtol=tol)
+
+
+def test_segment_sum_edge_cases_match_exact(cuda_device):
+    """The one-pass kernel on hub segments over three 2,048-row chunks,
+    empty segments at the head, middle and tail, phantom rows, m not a
+    multiple of 4 and F > 1, with ids and values aligned and one row off
+    their allocations, against the float64 sum (limit as above)."""
+    rng = np.random.default_rng(6)
+    n = 500
+    ids = np.concatenate([np.full(3, 4), np.full(7_000, 5),
+                          np.repeat(np.arange(6, 200), 3), np.full(6_500, 210),
+                          np.arange(220, 400, 3), np.full(9, n)]).astype(np.int32)
+    assert len(ids) % 4
+    for f in (1, 3):
+        ids_t = torch.from_numpy(ids).to(cuda_device)
+        vals = torch.from_numpy(rng.standard_normal((len(ids), f))
+                                .astype(np.float32)).to(cuda_device)
+        keep = ids_t < n
+        exact, mass = (torch.zeros((n, f), dtype=torch.float64,
+                                   device=cuda_device)
+                       .index_add_(0, ids_t[keep].long(), x[keep].double())
+                       for x in (vals, vals.abs()))
+        limit = 1e-5 + 8 * 2.0 ** -24 * mass
+        for i, x in ((ids_t, vals), (torch.cat([ids_t[:1], ids_t])[1:],
+                                     torch.cat([vals[:1], vals])[1:])):
+            ops.reset_launch_counts()
+            got = ops.segment_sum(x, i, n, use_kernel=True)
+            assert ops.launch_counts()["segment_sum"] == 1
+            assert bool(((got.double() - exact).abs() <= limit).all())

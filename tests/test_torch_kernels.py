@@ -8,6 +8,8 @@ the float32/bf16 segment sums. The CUDA kernels themselves are compared
 with the plain versions in ``tests/test_torch_cuda.py`` (needs a card)
 and by ``chip_smoke.py``.
 """
+import shutil
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -20,6 +22,8 @@ from repro.core import versioned as rv  # noqa: E402
 from repro.kernels import segment_sum as pallas_ss  # noqa: E402
 from repro.kernels import snapshot_resolve as pallas_sr  # noqa: E402
 from repro_torch.core import versioned as tv  # noqa: E402
+from repro_torch.kernels import _lib as cuda_lib  # noqa: E402
+from repro_torch.kernels import flash_attention as cuda_fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import segment_sum as cuda_ss  # noqa: E402
 from repro_torch.kernels import snapshot_resolve as cuda_sr  # noqa: E402
@@ -93,12 +97,88 @@ def test_segment_sum_matches_pallas(m, F, n, dtype):
                                rtol=tol)
 
 
-def test_segment_sum_empty_segments_and_phantom_rows():
-    vals = torch.ones((10, 4))
-    ids = torch.tensor([0, 0, 0, 0, 5, 5, 5, 5, 7, 7], dtype=torch.int32)
-    got = ref.segment_sum(vals, ids, 7)        # id 7 is the phantom row
-    assert got[1:5].sum() == 0 and got[6].sum() == 0
-    assert got[0].sum() == 16 and got[5].sum() == 16
+def _edge_ids(case):
+    """Ascending ids for the one-pass kernel's edge cases (the CUDA kernel
+    owns segments per 2,048-row chunk; the same cases run on the card in
+    tests/test_torch_cuda.py and chip_smoke.py)."""
+    if case == "phantom rows":
+        return np.array([0, 0, 0, 0, 5, 5, 5, 5, 7, 7], np.int32), 7
+    if case == "hub segments":      # two segments longer than three chunks
+        return np.concatenate([np.full(3, 1), np.full(6_200, 2),
+                               np.arange(3, 40), np.full(6_150, 41),
+                               np.full(5, 42)]).astype(np.int32), 43
+    if case == "empty head and tail":
+        return np.repeat(np.arange(10, 30, 3), 7).astype(np.int32), 40
+    if case == "m not a multiple of 4":
+        return np.sort(np.random.default_rng(3).integers(0, 21, 4_099)) \
+            .astype(np.int32), 20
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["phantom rows", "hub segments",
+                                  "empty head and tail",
+                                  "m not a multiple of 4"])
+@pytest.mark.parametrize("F", [1, 3])
+def test_segment_sum_empty_segments_and_phantom_rows(case, F):
+    """The plain version the CUDA kernel is held to equals the Pallas
+    kernel (interpret mode) on the same seeded inputs, within float32
+    rounding (1e-4 relative: hubs of 6,000 rows summed in two orders)."""
+    ids, n = _edge_ids(case)
+    vals = np.random.default_rng(len(ids) + F).standard_normal(
+        (len(ids), F)).astype(np.float32)
+    got = ref.segment_sum(torch.from_numpy(vals), torch.from_numpy(ids), n)
+    want = pallas_ss.segment_sum(jnp.asarray(vals), jnp.asarray(ids), n,
+                                 interpret=True)
+    assert got.dtype == torch.float32 and got.shape == (n, F)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+    present = np.zeros(n, bool)
+    present[ids[ids < n]] = True
+    assert (got.numpy()[~present] == 0).all()       # empty segments are 0
+    if case == "phantom rows":   # id 7 = n: the phantom row is dropped
+        ones = ref.segment_sum(torch.ones((10, 4)), torch.from_numpy(ids), n)
+        assert ones[1:5].sum() == 0 and ones[6].sum() == 0
+        assert ones[0].sum() == 16 and ones[5].sum() == 16
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 32, "simt"),
+    (torch.bfloat16, 16, "simt"), (torch.float32, 256, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 16, "simt")])
+def test_flash_attention_route(dtype, hd, want):
+    assert cuda_fa.route(dtype, hd) == want
+
+
+@pytest.mark.parametrize("dtype,hd,err", [
+    (torch.bfloat16, 48, ValueError), (torch.float32, 512, ValueError),
+    (torch.float16, 64, TypeError)])
+def test_flash_attention_rejects_before_touching_the_library(
+        monkeypatch, dtype, hd, err):
+    def no_library():
+        raise AssertionError("the library was loaded")
+    monkeypatch.setattr(cuda_fa._lib, "load", no_library)
+    q = torch.zeros((1, 2, 8, hd), dtype=dtype)
+    with pytest.raises(err):
+        cuda_fa.route(dtype, hd)
+    with pytest.raises(err):
+        cuda_fa.flash_attention(q, q[:, :1], q[:, :1])
+
+
+def test_kernel_digest_follows_headers_and_flags(tmp_path, monkeypatch):
+    """A changed header under csrc/ or a changed link flag gives another
+    library name, so the build runs again."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_lib.CSRC, csrc)
+    assert list(csrc.glob("*.cuh")), "no shared header to edit"
+    before = cuda_lib._digest(csrc)
+    assert cuda_lib._digest(csrc) == before
+    header = next(iter(sorted(csrc.glob("*.cuh"))))
+    header.write_bytes(header.read_bytes() + b"\n")
+    after = cuda_lib._digest(csrc)
+    assert after != before
+    monkeypatch.setattr(cuda_lib, "LINK_FLAGS", cuda_lib.LINK_FLAGS + ("-g",))
+    assert cuda_lib._digest(csrc) != after
 
 
 def test_use_kernel_true_on_cpu_raises():
@@ -127,6 +207,7 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_count_nothing():
     assert ops.launch_counts() == {"liveness_mask": 0, "snapshot_resolve": 0,
                                    "segment_sum": 0, "lru_scan": 0,
                                    "flash_attention": 0}
+    assert ops.route_counts() == {"flash_attention": {"wgmma": 0, "simt": 0}}
 
 
 @pytest.mark.parametrize("k", [1, 3])
