@@ -52,6 +52,33 @@ before the result lines:
    last-position logits and every cache must agree within ``MODEL_RTOL``
    of each tensor's largest magnitude.
 
+6. The offline graph plane, the JAX package's end-to-end example
+   (``examples/dynamic_graph_end_to_end.py``) at full size on the card: a
+   preferential-attachment stream (``synthesize_stream``: 1,048,576
+   vertices, 8 epochs of 1,000,000 adds, seed 0), whose in-degrees follow
+   a power law. Launch counts are reset just before ``pagerank_timeline``
+   runs over all 8 versions (incremental, tol 1e-6, max_iter 200) and read
+   just after: ``segment_sum`` once per PageRank iteration,
+   ``liveness_mask`` once per view rebuilt from the stamps. The last
+   ranks against the plain route within atol 1e-6; WCC and the emerging
+   vertices. Then ``partition_graph(view, 16, hub_k=64)`` and the three
+   modes of ``distributed_join_group_by`` against the float64 sum and
+   ``compute.join_group_by`` within a derived bound (``join_bound``), with
+   two planted faults that must exceed it; ``run_edge_centric`` against
+   ``compute.pagerank``; ``run_pregel`` on 8,192 vertices; a MapReduce
+   count of edge destinations; a dataflow's causal event delivery; the
+   citation schema; a lineage-tracked analytics view recovered after a
+   simulated loss; ``segment_sum`` at the power-law shape (the checks
+   line).
+7. The RPC tier: ``GraphRPCServer`` over a ``GraphQueryServer`` on a
+   4-shard store on the card (262,144 vertices, 8 epochs of 250,000
+   adds, ``delete_frac=0.2``) ingesting on a background thread while 4
+   socket clients send 64 queries each over the four kinds, some pinned
+   to older versions. Every answer is recomputed at its version on the
+   plain path (PageRank: every kernel run again from the same start,
+   within atol 1e-6); then ``partition_graph_sharded`` in both placements
+   against ``compute.join_group_by``.
+
 Phase 2 also holds the model kernels against their plain versions at the
 slice's shapes: ``lru_scan`` at (8, 4096, 2560) with and without ``h0``
 and at (2, 1000, 2560) (atol 1e-5, rtol 1e-4); ``flash_attention`` at
@@ -105,6 +132,21 @@ FLASH_WINDOW = 2048
 MIXER_RTOL = 1e-2
 STATE_RTOL = 1e-5
 MODEL_RTOL = 5e-2
+
+# phase 6: the offline plane on a preferential-attachment stream
+OFFLINE_N, OFFLINE_EPOCHS, OFFLINE_ADDS = 1 << 20, 8, 1_000_000
+PARTS, HUB_K = 16, 64                  # benchmarks/run.py's replica axis
+PREGEL_STREAM = (8192, 4, 8192)        # vertices, epochs, adds per epoch
+EDGE_CENTRIC_ITERS = 40
+# per-rank relative bound of the host float64 models against the float32
+# PageRank on the card (about 1e-6 in a CPU rehearsal at 2^17 vertices)
+EDGE_CENTRIC_RTOL = 1e-4
+PREGEL_ATOL = 1e-4                     # tests/test_graph.py's tolerance
+MAPREDUCE_WORDS = 1024                 # destination ids counted
+F32_UNIT = 2.0 ** -24                  # float32 unit roundoff
+# phase 7: the RPC tier
+RPC_N, RPC_EPOCHS, RPC_ADDS = 262_144, 8, 250_000
+RPC_CLIENTS, RPC_QUERIES = 4, 64
 
 
 class SmokeFailure(Exception):
@@ -640,20 +682,28 @@ def serve_stream(torch, device: str, n: int, epochs: int, adds: int, *,
 class counting_pagerank:
     """Within ``with``, sums the iterations of the PageRank runs that take
     the kernel route (``use_kernel`` not False): on the card each iteration
-    is one ``segment_sum`` launch."""
+    is one ``segment_sum`` launch. With ``record``, ``runs`` keeps each
+    such run's view, keyword arguments (the warm start among them) and
+    result, so that it can be run again on the plain route."""
+
+    def __init__(self, record: bool = False):
+        self.record = record
 
     def __enter__(self):
         import threading
 
         from repro_torch.graph import compute as gc
         self.gc, self.real, self.iterations = gc, gc.pagerank, 0
+        self.runs = []
         lock = threading.Lock()
 
-        def counted(*args, **kw):
-            res = self.real(*args, **kw)
+        def counted(view, **kw):
+            res = self.real(view, **kw)
             if kw.get("use_kernel") is not False:
                 with lock:
                     self.iterations += res.iterations
+                    if self.record:
+                        self.runs.append((view, kw, res))
             return res
         gc.pagerank = counted
         return self
@@ -951,6 +1001,522 @@ def check_model_against_plain(torch, run: dict, gen: int = MODEL_GEN,
             "worst_rel_err": errs[worst], "per_layer": per_layer}
 
 
+# --------------------------------------------------------------- phase 6
+def join_bound(torch, src, dst, values, n: int, extra_terms: int):
+    """The float64 join-group-by of ``values`` over the rows (src, dst),
+    and the most a float32 computation of it may differ from it, per
+    vertex: a float32 sum of k terms, added in any order, is off the
+    exact sum by at most (k - 1) 2^-24 times the sum of their magnitudes
+    (first order). A vertex with d in-edges summed in float32 and then
+    added across ``extra_terms`` partial vectors takes k = d +
+    extra_terms - 1 terms; the bound takes k = d + extra_terms, and the
+    extra 2^-24 of the mass covers the float64 oracle's own rounding
+    (d 2^-53 of it). Returns (exact, in_degree, mass)."""
+    s, d = src.long(), dst.long()
+    v = values.double()
+    exact = torch.zeros(n, dtype=torch.float64,
+                        device=values.device).index_add_(0, d, v[s])
+    mass = torch.zeros(n, dtype=torch.float64,
+                       device=values.device).index_add_(0, d, v.abs()[s])
+    deg = torch.bincount(d, minlength=n).double()
+    return exact, deg, mass, (deg + extra_terms) * F32_UNIT * mass
+
+
+def offline_timeline(torch, device: str, n: int, epochs: int,
+                     adds: int) -> dict:
+    """``pagerank_timeline`` over every version of a preferential-attachment
+    stream (``synthesize_stream``, seed 0), through the kernels, then WCC
+    and the emerging vertices on its last snapshot. Launch counts are
+    reset just before the timeline and read just after it."""
+    import numpy as np
+
+    from repro_torch.core.versioned import Version
+    from repro_torch.device import to_host
+    from repro_torch.graph import compute as gc
+    from repro_torch.graph.dyngraph import synthesize_stream
+    from repro_torch.kernels import ops
+
+    t = time.perf_counter()
+    g, _ = synthesize_stream(n, epochs, adds, seed=SEED, device=device)
+    sync(torch, device)
+    stream_s = time.perf_counter() - t
+    versions = [Version(e, 0) for e in range(epochs)]
+    full0, patched0 = g.view_full_builds, g.view_delta_patches
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    with counting_pagerank() as runs:
+        results = gc.pagerank_timeline(g, versions, incremental=True,
+                                       tol=1e-6, max_iter=200)
+    sync(torch, device)
+    timeline_s = time.perf_counter() - t
+    counts = ops.launch_counts()
+    full = g.view_full_builds - full0
+    patched = g.view_delta_patches - patched0
+    iterations = [r.iterations for r in results]
+    check(full + patched == epochs,
+          f"timeline built {full} + {patched} views for {epochs} versions")
+    check(runs.iterations == sum(iterations),
+          f"{runs.iterations} PageRank iterations counted, "
+          f"{sum(iterations)} reported")
+    if device == "cuda":
+        # one launch per iteration, one snapshot mask per view rebuilt
+        # from the stamps (a delta-patched view needs none)
+        check(counts["segment_sum"] == runs.iterations,
+              f"timeline: segment_sum launched {counts['segment_sum']} "
+              f"times in {runs.iterations} PageRank iterations")
+        check(counts["liveness_mask"] == full >= 1,
+              f"timeline: liveness_mask launched {counts['liveness_mask']} "
+              f"times for {full} views rebuilt from the stamps")
+    last = g.join_view(versions[-1])
+    mask = g.snapshot_mask(versions[-1])
+    check(mask.dtype == np.bool_ and mask.tobytes() == g.snapshot_mask(
+        versions[-1], use_kernel=False).tobytes(),
+        "last snapshot mask differs from its plain version")
+    check(int(mask.sum()) == last.m, "last snapshot mask counts "
+          f"{int(mask.sum())} live edges, the view {last.m}")
+    plain = gc.incremental_pagerank(results[-2], None, last, tol=1e-6,
+                                    max_iter=200, use_kernel=False)
+    a, b = to_host(results[-1].ranks), to_host(plain.ranks)
+    diff = float(np.abs(a - b).max())
+    check(a.dtype == np.float32 and a.shape == (n,)
+          and bool(np.isfinite(a).all()) and abs(float(a.sum()) - 1) < 1e-3,
+          "timeline ranks are not a finite distribution")
+    check(diff <= 1e-6, f"timeline last ranks: kernel vs plain {diff}")
+    check(abs(results[-1].iterations - plain.iterations) <= 1,
+          f"timeline last iterations {results[-1].iterations} vs plain "
+          f"{plain.iterations}")
+    t = time.perf_counter()
+    labels = gc.wcc(last)
+    src, dst = last.src.long(), last.dst.long()
+    check(bool((labels[src] == labels[dst]).all()),
+          "WCC: an edge joins two components")
+    check(bool((labels <= torch.arange(n, device=labels.device)).all()),
+          "WCC: a label above its vertex id")
+    components = int(torch.unique(labels).numel())
+    wcc_s = time.perf_counter() - t
+    top = gc.emerging_vertices(g, versions[-3], versions[-1], top_k=10)
+    growth = (to_host(last.in_degree)
+              - to_host(g.join_view(versions[-3]).in_degree))
+    check(growth[top[0]] == growth.max() and len(top) == 10,
+          "emerging vertices: the first is not the largest growth")
+    return {"graph": g, "versions": versions, "view": last,
+            "stream_s": stream_s, "timeline_s": timeline_s,
+            "iterations": iterations, "full_builds": full,
+            "delta_patches": patched, "counts": counts,
+            "pagerank_max_diff": diff, "components": components,
+            "wcc_s": wcc_s, "emerging": top[:3].tolist(),
+            "max_in_degree": int(last.in_degree.max())}
+
+
+def check_partition_modes(torch, view, n_parts: int, hub_k: int) -> dict:
+    """``partition_graph(view, n_parts, hub_k)`` and the three modes of
+    ``distributed_join_group_by`` on random float32 values (Generator seed
+    0): each within :func:`join_bound` of the float64 sum and of
+    ``compute.join_group_by`` (the ``segment_sum`` kernel on a card). Two
+    planted faults must exceed the bound: one partition's partials left
+    out, and the mirror of the hub with the most out-edges zeroed."""
+    from repro_torch.graph import compute as gc
+    from repro_torch.graph import partition as gp
+
+    device = view.src.device
+    t = time.perf_counter()
+    pg = gp.partition_graph(view, n_parts, hub_k=hub_k)
+    sync(torch, device.type)
+    build_s = time.perf_counter() - t
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED)
+    values = torch.rand(pg.n, generator=g, device=device)
+    vn = view.n
+    exact, deg, mass, bound = join_bound(torch, view.src, view.dst,
+                                         values[:vn], vn, n_parts)
+    kernel = gc.join_group_by(view, values[:vn])
+    # the kernel's own sum: d terms, so d - 1 roundings at most
+    both = bound + deg * F32_UNIT * mass
+    out = {"n_parts": n_parts, "hub_k": hub_k, "m_pad": int(pg.src.shape[1]),
+           "build_s": build_s, "comm_model": gp.comm_model(pg), "modes": {}}
+    for mode in ("allgather", "scatter", "hub"):
+        got = gp.distributed_join_group_by(pg, values, mode=mode)
+        check(got.shape == (pg.n,) and got.dtype == torch.float32
+              and bool(torch.isfinite(got).all()),
+              f"partition {mode}: shape {tuple(got.shape)}, {got.dtype}")
+        err = (got[:vn].double() - exact).abs()
+        vs_kernel = (got[:vn].double() - kernel.double()).abs()
+        check(bool((err <= bound).all()),
+              f"partition {mode}: max error {float(err.max())} over the "
+              f"bound at vertex {int((err - bound).argmax())}")
+        check(bool((vs_kernel <= both).all()),
+              f"partition {mode}: differs from join_group_by by "
+              f"{float(vs_kernel.max())}")
+        check(bool((got[vn:] == 0).all()), f"partition {mode}: padding")
+        ms = (cuda_ms(torch, lambda: gp.distributed_join_group_by(
+            pg, values, mode=mode), reps=10) if device.type == "cuda"
+            else None)
+        out["modes"][mode] = {"max_abs_err": float(err.max()),
+                              "vs_kernel": float(vs_kernel.max()),
+                              "ms": ms}
+    partials = gp.local_partials(pg, gp.mode_values(pg, values, "scatter"))
+    drop = int(pg.mask.sum(1).argmax())
+    kept = torch.cat([partials[:drop], partials[drop + 1:]]).sum(0)
+    vals = gp.mode_values(pg, values, "hub")
+    hub = int(pg.hubs[0])
+    vals[:, hub] = 0
+    zeroed = gp.local_partials(pg, vals).sum(0)
+    out["planted"] = {}
+    for name, bad in ((f"partition {drop} left out", kept),
+                      (f"hub {hub} mirror zeroed", zeroed)):
+        over = ((bad[:vn].double() - exact).abs() - bound).max()
+        check(float(over) > 0, f"planted fault not caught: {name}")
+        out["planted"][name] = float(over)
+    return out
+
+
+def check_models(torch, view, device: str,
+                 pregel_stream=PREGEL_STREAM) -> dict:
+    """The programming models on the protocol-dataflow runtime:
+    ``run_edge_centric`` on ``view`` against ``compute.pagerank`` (40
+    iterations, no dangling redistribution) within ``EDGE_CENTRIC_RTOL``
+    of each rank; ``run_pregel`` with ``pagerank_program`` on a small
+    stream (its per-edge Python loop bounds the size) within atol
+    ``PREGEL_ATOL``, as the reference's test holds it, and within
+    ``EDGE_CENTRIC_RTOL`` of each rank; ``run_mapreduce`` counting the
+    destination ids of that stream's first ``MAPREDUCE_WORDS`` edge rows;
+    a dataflow
+    whose delivered events must respect its causal relation."""
+    import numpy as np
+
+    from repro_torch.core.protocol_dataflow import (Dataflow, Egress,
+                                                    Ingress, Protocol,
+                                                    Vertex)
+    from repro_torch.core.versioned import Version
+    from repro_torch.device import to_host
+    from repro_torch.graph import compute as gc
+    from repro_torch.graph.dyngraph import synthesize_stream
+    from repro_torch.graph.models import (pagerank_program, run_edge_centric,
+                                          run_mapreduce, run_pregel)
+
+    out = {}
+    t = time.perf_counter()
+    ec = run_edge_centric(view, n_parts=4, iters=EDGE_CENTRIC_ITERS)
+    out["edge_centric_s"] = time.perf_counter() - t
+    pr = to_host(gc.pagerank(view, handle_dangling=False, tol=1e-12,
+                             max_iter=EDGE_CENTRIC_ITERS).ranks)
+    rel = float((np.abs(ec - pr) / np.abs(ec)).max())
+    check(ec.shape == pr.shape and rel <= EDGE_CENTRIC_RTOL,
+          f"edge-centric vs pagerank: max rel err {rel}")
+    out["edge_centric_rel_err"] = rel
+
+    g, _ = synthesize_stream(*pregel_stream, seed=SEED, device=device)
+    small = g.join_view(Version(pregel_stream[1] - 1, 0))
+    t = time.perf_counter()
+    got = run_pregel(small, pagerank_program(n=small.n), n_parts=4,
+                     init_value=1.0 / small.n, supersteps=200)
+    out["pregel_s"] = time.perf_counter() - t
+    want = to_host(gc.pagerank(small, tol=1e-12, max_iter=200,
+                               handle_dangling=False).ranks)
+    err = float(np.abs(got - want).max())
+    rel = float((np.abs(got - want) / np.abs(got)).max())
+    check(err <= PREGEL_ATOL and rel <= EDGE_CENTRIC_RTOL,
+          f"pregel vs pagerank: max abs {err}, max rel {rel}")
+    out.update(pregel_n=small.n, pregel_m=small.m, pregel_abs_err=err,
+               pregel_rel_err=rel)
+
+    # one event per word: the runtime's causal check is quadratic in them
+    dst = to_host(small.dst)[:MAPREDUCE_WORDS]
+    records = [" ".join(map(str, c)) for c in np.array_split(dst, 16)]
+    counts = run_mapreduce(records,
+                           map_fn=lambda line: [(int(w), 1)
+                                                for w in line.split()],
+                           reduce_fn=lambda k, vs: sum(vs))
+    want = np.bincount(dst)
+    check(counts == {int(v): int(want[v]) for v in np.flatnonzero(want)},
+          "mapreduce word count differs from the destinations' counts")
+    out["mapreduce_keys"] = len(counts)
+
+    # ingress -> relay -> egress over three epochs: every ingress send
+    # of an epoch happens before the relay's sends of that epoch
+    def caused(e1, e2):
+        p1, p2 = e1.payload, e2.payload
+        if (e1.kind == e2.kind == "send" and p1["src"] == "ingress"
+                and p2["src"] == "relay" and p1["epoch"] == p2["epoch"]):
+            return True
+        return None
+    proto = Protocol("relay", happens_before=caused)
+    df = Dataflow("causality")
+    ingress = df.add(Ingress("ingress", proto))
+    relay = df.add(Vertex("relay", proto,
+                          lambda v, port, xs: [("out", sum(xs))]))
+    egress = df.add(Egress("egress", proto, lambda x: None))
+    ingress.connect("out", relay)
+    relay.connect("out", egress)
+    for epoch in range(3):
+        ingress.push(range(4), epoch=epoch)
+        df.run_until_quiescent()
+    delivered = df.events.deliver()
+    stamps = [e.stamp for e in delivered]
+    check(len(delivered) == 15 and stamps == sorted(stamps)
+          and df.events.check_causal_consistency(delivered)
+          and not df.events.check_causal_consistency(delivered[::-1]),
+          "dataflow event delivery broke its causal order")
+    check(egress.received == [6, 6, 6], f"relay sums {egress.received}")
+    out["dataflow_events"] = len(delivered)
+    return out
+
+
+def check_views_and_schema(torch, g, versions) -> dict:
+    """``citation_schema``'s answers (the paper's Fig 2), and a
+    lineage-tracked analytics view over the timeline (the rank growth
+    between two snapshots) recovered after a simulated loss."""
+    import numpy as np
+
+    from repro_torch.core.views import View
+    from repro_torch.device import to_host
+    from repro_torch.graph import compute as gc
+    from repro_torch.graph.schema import citation_schema
+
+    reg = citation_schema()
+    check(reg.fields_of("Author", 2) == {"name": "String",
+                                         "contact": "String"}
+          and reg.versions_of("Author") == [1, 2]
+          and reg.link_allowed(("Author", 2), ("School", 1))
+          and not reg.link_allowed(("Author", 1), ("School", 1))
+          and reg.validate("Author", 2, {"name": "a", "contact": "b"})
+          and not reg.validate("Author", 1, {"contact": "b"}),
+          "citation_schema answers")
+    builds = {"n": 0}
+
+    def snapshot(v):
+        def produce():
+            builds["n"] += 1
+            return g.join_view(v)
+        return View.source(f"graph@{v.epoch}", produce, snapshot=v)
+
+    def ranks(view):
+        return to_host(gc.pagerank(view, tol=1e-6, max_iter=200).ranks)
+    old = snapshot(versions[len(versions) // 2]).map("pagerank@mid", ranks)
+    new = snapshot(versions[-1]).map("pagerank@last", ranks)
+    table = View.join("rank growth top 10",
+                      lambda a, b: np.argsort(a - b, kind="stable")[:10],
+                      old, new)
+    first = table.value()
+    table.invalidate(recursive=True)
+    again = table.recover()
+    check(builds["n"] == 4 and again.tobytes() == first.tobytes()
+          and table.spec.snapshot == versions[-1],
+          "analytics view: lineage recovery differs")
+    check(table.lineage() == [f"graph@{versions[len(versions) // 2].epoch}",
+                              "pagerank@mid", f"graph@{versions[-1].epoch}",
+                              "pagerank@last", "rank growth top 10"],
+          f"analytics view lineage {table.lineage()}")
+    return {"top_growth": first[:3].tolist()}
+
+
+def check_segment_sum_power_law(torch, view) -> dict:
+    """``segment_sum`` at the power-law snapshot's shape: the row of the
+    checks line, held against the plain version within 2 d_max u / (1 -
+    d_max u) of the largest sum (u = 2^-24: both are float32 sums of up
+    to d_max positive terms, each within (d_max - 1) u of the exact sum,
+    which is at most 1 / (1 - d_max u) times the float32 one), and every
+    segment against the float64 sum within :func:`join_bound`."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 5)
+    pr = torch.rand(view.n, generator=g, device="cuda")
+    contrib = (pr / torch.clamp(view.out_degree, min=1.0))[view.src]
+    d_max = int(view.in_degree.max())
+    row = check_segment_sum(torch, "segment_sum", contrib[:, None]
+                            .contiguous(), view.dst, view.n,
+                            2 * d_max * F32_UNIT / (1 - d_max * F32_UNIT))
+    got = ops.segment_sum(contrib[:, None].contiguous(), view.dst, view.n,
+                          use_kernel=True)[:, 0]
+    exact, _, _, bound = join_bound(torch, torch.arange(view.m,
+                                                        device="cuda"),
+                                    view.dst, contrib, view.n, 0)
+    err = (got.double() - exact).abs()
+    check(bool((err <= bound).all()),
+          f"segment_sum power-law: max error {float(err.max())} vs float64")
+    row.update(case="power-law", max_in_degree=d_max,
+               max_err_vs_float64=float(err.max()))
+    return row
+
+
+# --------------------------------------------------------------- phase 7
+def rpc_client(host, port, seed: int, n: int, count: int, out: list) -> None:
+    """One client thread: ``count`` queries over the four kinds, one in
+    four pinned to the version of this client's first answer; records
+    (query, pin, response, round-trip seconds)."""
+    import numpy as np
+
+    from repro_torch.graph.query import (DegreeTopK, KHop, PageRankQuery,
+                                         Reachability)
+    from repro_torch.launch.rpc import GraphRPCClient
+
+    rng = np.random.default_rng(seed)
+    pin = None
+    with GraphRPCClient(host, port, timeout_s=300.0) as cli:
+        for i in range(count):
+            kind = i % 4
+            if kind == 0:
+                q = KHop(source=int(rng.integers(n)), k=2)
+            elif kind == 1:
+                q = Reachability(src=int(rng.integers(n)),
+                                 dst=int(rng.integers(n)), max_hops=6)
+            elif kind == 2:
+                q = DegreeTopK(k=8)
+            else:
+                q = PageRankQuery(top_k=8 if i % 8 == 3 else None)
+            use_pin = pin if (i % 4 == 1 and pin is not None) else None
+            t = time.perf_counter()
+            r = cli.query(q, pin_version=use_pin)
+            out.append((q, use_pin, r, time.perf_counter() - t))
+            if r.ok and pin is None:
+                pin = r.version
+
+
+def serve_rpc(torch, device: str, n: int, epochs: int, adds: int,
+              clients: int, per_client: int) -> dict:
+    """``GraphRPCServer`` in front of a ``GraphQueryServer`` on a 4-shard
+    store on ``device``, the churn stream (``delete_frac=0.2``, seed 0)
+    ingested on a background thread while ``clients`` socket clients
+    query it. Launch counts are reset just before and read just after.
+    Every answer is then recomputed at the version it reports on the plain
+    path: k-hop, reachability and top-k byte-equal; each PageRank run the
+    server made through the kernels is run again from the same start on
+    the plain route (within atol 1e-6), and the served ranks must be that
+    run's, byte for byte."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.device import to_host
+    from repro_torch.graph.dyngraph import synthesize_churn_stream
+    from repro_torch.graph.query import PageRankQuery, SnapshotQueryEngine
+    from repro_torch.graph.sharded import ShardedDynamicGraph
+    from repro_torch.kernels import ops
+    from repro_torch.launch.rpc import GraphRPCServer
+    from repro_torch.launch.serve_graph import GraphQueryServer
+
+    batches = synthesize_churn_stream(n, epochs, adds, seed=SEED,
+                                      delete_frac=0.2)
+    e_max = sum(len(b.add_src) for b in batches) + 16
+    sg = ShardedDynamicGraph(SHARDS, n, e_max, device=device)
+    server = GraphQueryServer(sg, prewarm_pagerank=False, tol=1e-6,
+                              max_iter=200)
+    front = GraphRPCServer(server, port=0).start()
+    answers: list = []
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    try:
+        with counting_pagerank(record=True) as runs:
+            ingest = server.start_background_ingest(iter(batches))
+            host, port = front.address
+            threads = [threading.Thread(
+                target=rpc_client, args=(host, port, SEED + c, n,
+                                         per_client, answers))
+                for c in range(clients)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            ingest.join(timeout=600)
+            sync(torch, device)
+        check(not any(th.is_alive() for th in threads)
+              and not ingest.is_alive(), "RPC clients or ingest hung")
+        wall = time.perf_counter() - t
+        counts = ops.launch_counts()
+        stats = server.stats()
+    finally:
+        front.stop()
+        sg.shutdown()
+    check(len(answers) == clients * per_client,
+          f"{len(answers)} answers for {clients * per_client} queries")
+    check(sg.latest_sealed() == batches[-1].version,
+          f"ingest stopped at {sg.latest_sealed()}")
+    if device == "cuda":
+        check(counts["liveness_mask"] > 0, "RPC: no liveness_mask launch")
+        check(counts["segment_sum"] == runs.iterations > 0,
+              f"RPC: segment_sum launched {counts['segment_sum']} times in "
+              f"{runs.iterations} PageRank iterations")
+    by_version: dict = {}
+    diff = 0.0
+    for view, kw, res in runs.runs:
+        plain = runs.real(view, **{**kw, "use_kernel": False})
+        a, b = to_host(res.ranks), to_host(plain.ranks)
+        diff = max(diff, float(np.abs(a - b).max()))
+        by_version.setdefault(view.version, []).append(a)
+    check(diff <= 1e-6, f"RPC PageRank: kernel vs plain {diff}")
+    plain_engine = SnapshotQueryEngine(result_cache=False, tol=1e-6,
+                                       max_iter=200, use_kernel=False)
+    views, pinned, kinds = {}, 0, {}
+    for q, pin, r, _ in answers:
+        check(r.ok, f"RPC {q}: {r.error}")
+        check(pin is None or r.version == pin,
+              f"RPC {q} pinned at {pin} answered at {r.version}")
+        pinned += pin is not None
+        kind = type(q).__name__
+        kinds[kind] = kinds.get(kind, 0) + 1
+        if r.version not in views:
+            views[r.version] = sg.join_view(r.version)
+        if isinstance(q, PageRankQuery):
+            served = [full if q.top_k is None else
+                      (np.argsort(-full, kind="stable")[:q.top_k],
+                       full[np.argsort(-full, kind="stable")[:q.top_k]])
+                      for full in by_version.get(r.version, [])]
+            check(any(same_answer(np, r.value, s) for s in served),
+                  f"RPC {q} at {r.version}: not the ranks of a kernel run")
+        else:
+            want = plain_engine.execute(views[r.version], [q])[0]
+            check(same_answer(np, r.value, want),
+                  f"RPC {q} at {r.version} differs from the plain answer")
+    rtt = sorted(x for *_, x in answers)
+    return {"graph": sg, "wall_s": wall, "served": stats.served,
+            "counts": counts, "pagerank_runs": len(runs.runs),
+            "pagerank_max_diff": diff, "pinned": pinned, "kinds": kinds,
+            "versions": len(views),
+            "rpc_p50_ms": rtt[len(rtt) // 2] * 1e3,
+            "rpc_p99_ms": rtt[min(len(rtt) - 1,
+                                  int(0.99 * len(rtt)))] * 1e3,
+            "server_p50_ms": stats.query_p50_s * 1e3,
+            "server_p99_ms": stats.query_p99_s * 1e3}
+
+
+def check_sharded_partitions(torch, sg, hub_k: int) -> dict:
+    """``partition_graph_sharded`` on the store's shard views at its last
+    sealed version, both placements: ``allgather`` on ``dst_hash`` and
+    ``scatter`` / ``hub`` on ``src`` against ``compute.join_group_by`` on
+    the stitched view, within :func:`join_bound` plus the kernel's own
+    rounding."""
+    from repro_torch.graph import compute as gc
+    from repro_torch.graph import partition as gp
+
+    v = sg.latest_sealed()
+    shard_views = sg.shard_views(v)
+    view = sg.join_view(v)
+    device = view.src.device
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED + 6)
+    n_parts = len(shard_views)
+    pgs = {p: gp.partition_graph_sharded(shard_views, hub_k=hub_k,
+                                         placement=p)
+           for p in ("dst_hash", "src")}
+    values = torch.rand(pgs["src"].n, generator=g, device=device)
+    vn = view.n
+    _, deg, mass, bound = join_bound(torch, view.src, view.dst, values[:vn],
+                                     vn, n_parts)
+    kernel = gc.join_group_by(view, values[:vn]).double()
+    both = bound + deg * F32_UNIT * mass
+    out = {}
+    for placement, mode in (("dst_hash", "allgather"), ("src", "scatter"),
+                            ("src", "hub")):
+        got = gp.distributed_join_group_by(pgs[placement], values, mode=mode)
+        err = (got[:vn].double() - kernel).abs()
+        check(bool((err <= both).all()),
+              f"sharded {placement}/{mode}: differs from join_group_by by "
+              f"{float(err.max())}")
+        out[f"{placement}/{mode}"] = float(err.max())
+    return out
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     root = pathlib.Path(__file__).resolve().parent
@@ -1071,6 +1637,52 @@ def main() -> int:
         f"{MODEL_RTOL}); phase {time.perf_counter() - t:.3f} s")
     log("phase 5 per-layer cache max rel err: "
         + " ".join(f"{x:.2e}" for x in agree["per_layer"]))
+
+    t = time.perf_counter()
+    tl = offline_timeline(torch, "cuda", OFFLINE_N, OFFLINE_EPOCHS,
+                          OFFLINE_ADDS)
+    view = tl["view"]
+    log(f"phase 6 timeline: stream of {OFFLINE_EPOCHS} x {OFFLINE_ADDS} "
+        f"adds on {OFFLINE_N} vertices {tl['stream_s']:.3f} s; "
+        f"pagerank_timeline over {OFFLINE_EPOCHS} versions "
+        f"{tl['timeline_s']:.3f} s ({tl['timeline_s'] / OFFLINE_EPOCHS:.3f}"
+        f" s per version), PageRank iterations per version "
+        f"{tl['iterations']}; views rebuilt from the stamps "
+        f"{tl['full_builds']}, delta-patched {tl['delta_patches']}; "
+        f"launches {tl['counts']}; last snapshot m={view.m}, max in-degree "
+        f"{tl['max_in_degree']}; last ranks kernel vs plain "
+        f"{tl['pagerank_max_diff']:.3e}; WCC {tl['components']} components "
+        f"in {tl['wcc_s']:.3f} s; emerging vertices {tl['emerging']}")
+    parts = check_partition_modes(torch, view, PARTS, HUB_K)
+    log(f"phase 6 partitioned join-group-by (one card emulating {PARTS} "
+        f"partitions; ms per call, comm_model bytes per superstep): "
+        f"{json.dumps(parts)}")
+    models = check_models(torch, view, "cuda")
+    log(f"phase 6 programming models: {json.dumps(models)}")
+    views = check_views_and_schema(torch, tl["graph"], tl["versions"])
+    extra.append(check_segment_sum_power_law(torch, view))
+    log(f"phase 6 views and schema: {json.dumps(views)}; power-law "
+        f"segment_sum {json.dumps(extra[-1])}")
+    log(f"phase 6 offline plane: {time.perf_counter() - t:.3f} s")
+    del tl, view
+
+    t = time.perf_counter()
+    rpc = serve_rpc(torch, "cuda", RPC_N, RPC_EPOCHS, RPC_ADDS, RPC_CLIENTS,
+                    RPC_QUERIES)
+    sharded = check_sharded_partitions(torch, rpc["graph"], HUB_K)
+    rpc["graph"].shutdown()
+    log(f"phase 7 RPC tier: {RPC_CLIENTS} clients x {RPC_QUERIES} queries "
+        f"while {RPC_EPOCHS} epochs of {RPC_ADDS} adds on {RPC_N} vertices "
+        f"ingest, {rpc['wall_s']:.3f} s; served {rpc['served']} "
+        f"({rpc['kinds']}, {rpc['pinned']} pinned, at {rpc['versions']} "
+        f"versions); RPC round trip p50 {rpc['rpc_p50_ms']:.3f} ms, p99 "
+        f"{rpc['rpc_p99_ms']:.3f} ms (server p50 "
+        f"{rpc['server_p50_ms']:.3f} ms, p99 {rpc['server_p99_ms']:.3f} "
+        f"ms); launches {rpc['counts']}; {rpc['pagerank_runs']} PageRank "
+        f"runs, kernel vs plain {rpc['pagerank_max_diff']:.3e}; sharded "
+        f"partitions vs join_group_by {json.dumps(sharded)}; phase "
+        f"{time.perf_counter() - t:.3f} s")
+    del rpc
 
     for row in rows:
         name = row["name"]

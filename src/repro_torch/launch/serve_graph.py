@@ -27,8 +27,10 @@ apply as they did when one RLock covered both planes. The only
 lock-ordering rule is ``_ingest_lock`` → ``_serve_lock`` (publish);
 nothing ever nests the other way (enforced by reprolint RL002).
 
-The reference's network front (``launch/rpc.py``) is not ported yet; this
-module's ``main`` runs the in-process serving loop.
+The network front for this server lives in ``launch/rpc.py``
+(length-prefixed wire codec, admission control, cross-client batching);
+``python -m repro_torch.launch.serve_graph --rpc-port 0`` starts it on a
+synthetic stream.
 
 This is layer 5 (the top) of the pipeline mapped in
 ``docs/ARCHITECTURE.md``, and the serving loop is also where dynamic
@@ -1009,6 +1011,12 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device for the store, views and kernels")
+    ap.add_argument("--rpc-port", type=int, default=None,
+                    help="serve the stream over the socket RPC front on "
+                         "this port (0 = ephemeral) instead of the "
+                         "in-process demo loop")
+    ap.add_argument("--ingest-delay-s", type=float, default=0.05,
+                    help="pause between epochs in --rpc-port mode")
     ap.add_argument("--wal-dir", type=str, default=None,
                     help="durability directory (write-ahead log + graph "
                          "checkpoints); survive kill -9 and resume with "
@@ -1038,8 +1046,33 @@ def main():
                                  wal_dir=args.wal_dir,
                                  checkpoint_every=args.checkpoint_every,
                                  device=args.device)
-    server = GraphQueryServer(sg, prewarm_pagerank=True,
+    server = GraphQueryServer(sg, prewarm_pagerank=args.rpc_port is None,
                               tol=1e-6, max_iter=200)
+
+    if args.rpc_port is not None:
+        from repro_torch.launch.rpc import GraphRPCServer
+        rpc = GraphRPCServer(server, port=args.rpc_port)
+        rpc.start()
+        host, port = rpc.address
+        # the one line a driving process parses for the ephemeral port
+        print(f"RPC listening on {host}:{port}", flush=True)
+        thread = server.start_background_ingest(
+            iter(batches), delay_s=args.ingest_delay_s)
+        thread.join()
+        print(f"stream drained after {args.epochs} epochs; serving until "
+              "stdin closes", flush=True)
+        try:
+            import sys
+            sys.stdin.read()      # parent closes stdin to stop us
+        except KeyboardInterrupt:
+            pass
+        rpc.stop()
+        sg.shutdown()
+        s = server.stats()
+        print(f"served {s.served} queries over RPC on {sg.device} "
+              f"(shed {s.shed_overload} overload / {s.shed_deadline} "
+              f"deadline)")
+        return
 
     rng = np.random.default_rng(args.seed + 1)
     t0 = time.perf_counter()

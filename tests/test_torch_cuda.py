@@ -197,3 +197,63 @@ def test_segment_sum_edge_cases_match_exact(cuda_device):
             got = ops.segment_sum(x, i, n, use_kernel=True)
             assert ops.launch_counts()["segment_sum"] == 1
             assert bool(((got.double() - exact).abs() <= limit).all())
+
+
+def _partition_bound(view, values, n_parts):
+    """Two float32 sums of the same d terms plus n_parts partials differ
+    by at most 2 (d + n_parts) 2^-24 times the terms' absolute mass."""
+    src, dst = view.src.cpu().long(), view.dst.cpu().long()
+    mass = torch.zeros(view.n, dtype=torch.float64).index_add_(
+        0, dst, values.double().abs()[src])
+    deg = torch.bincount(dst, minlength=view.n).double()
+    return 2 * (deg + n_parts) * 2.0 ** -24 * mass
+
+
+def test_partition_modes_on_card_equal_cpu(cuda_device):
+    from repro_torch.core.versioned import Version
+    from repro_torch.graph import partition as gp
+    from repro_torch.graph.dyngraph import synthesize_stream
+
+    views = [synthesize_stream(2000, 4, 3000, seed=3, device=d)[0]
+             .join_view(Version(3, 0)) for d in (cuda_device, "cpu")]
+    pgs = [gp.partition_graph(v, 8, hub_k=16) for v in views]
+    for f in ("src", "dst", "mask", "out_degree", "hubs", "is_hub"):
+        assert torch.equal(getattr(pgs[0], f).cpu(), getattr(pgs[1], f)), f
+    values = torch.from_numpy(
+        np.random.default_rng(5).random(pgs[1].n).astype(np.float32))
+    limit = _partition_bound(views[1], values, 8)
+    for mode in ("allgather", "scatter", "hub"):
+        card = gp.distributed_join_group_by(pgs[0], values.to(cuda_device),
+                                            mode=mode)
+        host = gp.distributed_join_group_by(pgs[1], values, mode=mode)
+        assert card.device.type == "cuda" and card.dtype == torch.float32
+        err = (card.cpu().double() - host.double()).abs()[:views[1].n]
+        assert bool((err <= limit).all()), mode
+
+
+def test_offline_timeline_on_card_equals_cpu(cuda_device):
+    from repro_torch.core.versioned import Version
+    from repro_torch.graph import compute as gc
+    from repro_torch.graph.dyngraph import synthesize_stream
+
+    versions = [Version(e, 0) for e in range(5)]
+    runs = {}
+    for d in (cuda_device, "cpu"):
+        g, _ = synthesize_stream(3000, 5, 4000, seed=4, device=d)
+        ops.reset_launch_counts()
+        res = gc.pagerank_timeline(g, versions, incremental=True, tol=1e-6,
+                                   max_iter=200)
+        counts = ops.launch_counts()
+        last = g.join_view(versions[-1])
+        runs[str(d)] = (res, counts, gc.wcc(last).cpu(),
+                        gc.emerging_vertices(g, versions[1], versions[-1]))
+    (card, counts, labels, top), (host, _, host_labels, host_top) = \
+        runs["cuda"], runs["cpu"]
+    assert counts["segment_sum"] == sum(r.iterations for r in card) > 0
+    assert counts["liveness_mask"] > 0
+    for a, b in zip(card, host):
+        assert abs(a.iterations - b.iterations) <= 1
+        np.testing.assert_allclose(a.ranks.cpu().numpy(), b.ranks.numpy(),
+                                   rtol=0, atol=1e-6)
+    assert torch.equal(labels, host_labels)
+    assert np.array_equal(top, host_top)

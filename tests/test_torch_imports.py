@@ -34,7 +34,10 @@ def test_port_has_the_slice_modules():
               "configs.recurrentgemma_2b", "nn.layers", "nn.rope",
               "kernels.lru_scan", "nn.recurrent", "kernels.flash_attention",
               "nn.attention", "models.transformer", "models.params",
-              "launch.steps", "launch.serve"):
+              "launch.steps", "launch.serve", "core.clock",
+              "core.protocol_dataflow", "core.views", "graph.schema",
+              "graph.reference", "graph.models", "graph.partition",
+              "launch.rpc"):
         assert f"repro_torch.{m}" in mods, m
     for src in ("snapshot_resolve.cu", "segment_sum.cu", "lru_scan.cu",
                 "flash_attention.cu"):
