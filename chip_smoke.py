@@ -78,6 +78,32 @@ before the result lines:
    plain path (PageRank: every kernel run again from the same start,
    within atol 1e-6); then ``partition_graph_sharded`` in both placements
    against ``compute.join_group_by``.
+8. Training, driven as ``python -m repro_torch.launch.train`` drives it.
+   8a: the two backward kernels against their plain versions
+   (``kernels/ref.py``) on the card, each fed the same forward output:
+   ``flash_attention_bwd`` at the training shape (2, 10, 1, 4096, 256)
+   bf16 with window 2048, at (1, 8, 2, 1024, 128) float32, at reduced
+   qwen2.5's (2, 4, 2, 64, 16) bf16 and at phase 2's bf16 edge shapes;
+   ``lru_scan_bwd`` at (2, 4096, 2560) with and without ``h0``; relative
+   to each gradient's largest magnitude within ``BWD_RTOL_BF16``,
+   ``BWD_RTOL_F32`` or ``LRU_BWD_RTOL``, with planted faults (the lse one
+   row off, the window one kv tile short, dh one step late) that must
+   exceed them; timed beside the plain versions and SDPA's backward.
+   8b: one unit (3 layers) of ``recurrentgemma-2b`` at full width, the
+   loss and every parameter's gradient through the kernels against the
+   plain route on the card, within ``GRAD_RTOL``, with two planted
+   backward faults. 8c, the main path: ``launch.train.run`` on the full
+   model (26 layers, 3.32 B float32 master weights, AdamW), 1 + 4 steps
+   of 2 x 4096 Markov tokens (seed 0); launch counts reset just before
+   and read just after: per step 34 ``lru_scan``, 18 ``lru_scan_bwd``, 16
+   ``flash_attention`` (all ``wgmma``) and 8 ``flash_attention_bwd`` (the
+   units' forward runs twice under remat); every loss finite, the first
+   within ``FIRST_LOSS_TOL`` of ln(256000); step time, tokens per second,
+   peak memory, then one more step taken apart (forward, loss chunks,
+   backward, optimizer) with the device busy share. 8d: the driver's
+   fault path on the reduced config: ``fail_at=8`` with checkpoints every
+   5 steps against an uninterrupted run, the same with ``compress``, and
+   the port's checkpoint served by ``launch.serve.Server.from_checkpoint``.
 
 Phase 2 also holds the model kernels against their plain versions at the
 slice's shapes: ``lru_scan`` at (8, 4096, 2560) with and without ``h0``
@@ -92,8 +118,10 @@ with window 300 (ragged S, a window off the tile grid, GQA 4) and at
 The lines before the last are the checks off the main path's shapes as
 JSON (``{"checks": [...]}``), the card, and the kernel table as JSON (one
 row per kernel, at the shape its main path runs, with that run's
-launches; ``route`` is the language, ``kernel_route`` which of the
-wrapper's kernels ran); the last line is ``{"ok": true, "device":
+launches: phase 3 for the graph kernels, phase 5 for the forward model
+kernels (``launches_training`` gives phase 8c's), phase 8c for the
+backward kernels; ``route`` is the language, ``kernel_route`` which of
+the wrapper's kernels ran); the last line is ``{"ok": true, "device":
 {...}}``. Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
@@ -147,6 +175,20 @@ F32_UNIT = 2.0 ** -24                  # float32 unit roundoff
 # phase 7: the RPC tier
 RPC_N, RPC_EPOCHS, RPC_ADDS = 262_144, 8, 250_000
 RPC_CLIENTS, RPC_QUERIES = 4, 64
+# phase 8: training recurrentgemma-2b at full width and depth
+TRAIN_BATCH, TRAIN_SEQ = 2, 4096
+TRAIN_WARMUP, TRAIN_STEPS = 1, 4
+FLASH_TRAIN_SHAPE = (TRAIN_BATCH, 10, 1, TRAIN_SEQ, 256)  # B, Hq, Hkv, S, hd
+LRU_TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 2560)
+# backward kernel vs plain backward, relative to each gradient's largest
+# magnitude: bf16 outputs round once (2^-8), so 1e-2; float32 1e-4; the
+# scan's float32 chain 1e-5
+BWD_RTOL_BF16, BWD_RTOL_F32, LRU_BWD_RTOL = 1e-2, 1e-4, 1e-5
+# one unit's loss gradients, kernel route vs plain route on the card
+GRAD_RTOL = 5e-2
+# the first loss of random weights: ln(vocab) plus about half the logits'
+# variance (about 1 at init), so within 1 of ln(256000)
+FIRST_LOSS_TOL = 1.0
 
 
 class SmokeFailure(Exception):
@@ -198,17 +240,22 @@ def bound(nbytes: float, ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_ms(torch, fn, kernel: str, reps: int = 10) -> float | None:
-    """The kernel's own device time per launch in ms, from ``torch.profiler``
-    over ``reps`` calls of ``fn`` after a warm-up. Fails if anything else ran
-    on the card in that window (every device event must be a kernel whose
-    name holds ``kernel``) or if there were more launches than calls: one
-    launch per call, no helper kernels, no copies. None when the profiler
-    records no device activity (then the row says "not measured"). The
-    profiler may drop the window's first launch, so the time is averaged
-    over the launches it saw."""
+def device_ms(torch, fn, kernel, reps: int = 10,
+              per_call: int = 1) -> float | None:
+    """The kernel's own device time per call in ms, from ``torch.profiler``
+    over ``reps`` calls of ``fn`` after a warm-up. ``kernel`` is a name, or
+    a tuple of names when a call launches several kernels, one of each
+    (``per_call`` launches). Fails if anything else ran on the card in that
+    window (every device event must be a kernel whose name holds one of the
+    names) or if there were more launches than ``per_call`` per call: no
+    helper kernels, no copies. None when the profiler records no device
+    activity, or none for one of the call's kernels (then the row says
+    "not measured"). The profiler may drop launches at the window's start,
+    so each kernel's time is averaged over the launches of it that the
+    profiler saw, and a call's time is the sum of those averages."""
     from torch.profiler import ProfilerActivity, profile
 
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -218,11 +265,15 @@ def device_ms(torch, fn, kernel: str, reps: int = 10) -> float | None:
     on_card = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     if not on_card:
         return None
-    others = [e.key for e in on_card if kernel not in e.key]
-    check(not others, f"{kernel}: other device work in its window: {others}")
+    others = [e.key for e in on_card if not any(n in e.key for n in names)]
+    check(not others, f"{names}: other device work in its window: {others}")
     launches = sum(e.count for e in on_card)
-    check(launches <= reps, f"{kernel}: {launches} launches in {reps} calls")
-    return sum(e.self_device_time_total for e in on_card) / launches / 1e3
+    check(launches <= reps * per_call and len(on_card) <= per_call,
+          f"{names}: {launches} launches of {len(on_card)} kernels in "
+          f"{reps} calls")
+    if len(on_card) < per_call:
+        return None   # a kernel of the call left no record in the window
+    return sum(e.self_device_time_total / e.count for e in on_card) / 1e3
 
 
 def host_ms(torch, fn, reps: int = 200) -> float:
@@ -852,12 +903,14 @@ def max_rel_err(torch, got, want) -> float:
 
 
 class planted:
-    """Within ``with``, the model path's ``ops`` entry point ``name`` runs
-    the kernel on altered inputs: a fault the layer check must catch."""
+    """Within ``with``, the model path's ``ops`` entry point ``name`` (or
+    attribute ``name`` of module ``target``) runs the kernel on altered
+    inputs: a fault the check must catch."""
 
-    def __init__(self, name: str, alter):
-        from repro_torch.kernels import ops
-        self.ops, self.name, self.alter = ops, name, alter
+    def __init__(self, name: str, alter, target=None):
+        if target is None:
+            from repro_torch.kernels import ops as target
+        self.ops, self.name, self.alter = target, name, alter
 
     def __enter__(self):
         self.real = getattr(self.ops, self.name)
@@ -865,10 +918,17 @@ class planted:
         def faulty(*args, **kw):
             args, kw = self.alter(args, kw)
             return self.real(*args, **kw)
+        # a raw launcher counts on its module attribute, which is now
+        # ``faulty``: carry the count there and back
+        if hasattr(self.real, "launches"):
+            faulty.launches = self.real.launches
+        self.faulty = faulty
         setattr(self.ops, self.name, faulty)
 
     def __exit__(self, *exc):
         setattr(self.ops, self.name, self.real)
+        if hasattr(self.real, "launches"):
+            self.real.launches = self.faulty.launches
 
 
 def late_b(args, kw):
@@ -1518,6 +1578,416 @@ def check_sharded_partitions(torch, sg, hub_k: int) -> dict:
 
 
 # ------------------------------------------------------------------- main
+# --------------------------------------------------------------- phase 8
+FLASH_BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
+FLASH_BWD_KERNELS = ("delta_kernel", "dkv_kernel", "dq_kernel")
+
+
+def bwd_err(torch, got, want) -> float:
+    """The largest max_rel_err over the gradients of one call."""
+    return max(max_rel_err(torch, g, w) for g, w in zip(got, want,
+                                                        strict=True)
+               if w is not None)
+
+
+def check_flash_attention_bwd(torch) -> tuple[dict, list[dict]]:
+    """flash_attention_bwd against its plain version (the full S x S
+    softmax gradient in float32), fed the same forward output and lse, at
+    the training shape and at the forward's other shapes; each with a
+    planted fault (the lse one row off; with a window, the window one kv
+    tile short) that must exceed the limit. Timed beside the plain version
+    and SDPA's backward with the same boolean mask."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = ((FLASH_TRAIN_SHAPE, bf16, FLASH_WINDOW, BWD_RTOL_BF16),
+             ((1, 8, 2, 1024, 128), f32, None, BWD_RTOL_F32),
+             ((2, 4, 2, 64, 16), bf16, None, BWD_RTOL_BF16),
+             ((1, 8, 2, 1000, 128), bf16, 300, BWD_RTOL_BF16),
+             ((2, 4, 4, 4097, 64), bf16, None, BWD_RTOL_BF16))
+    rows = []
+    for (B, Hq, Hkv, S, hd), dtype, window, tol in cases:
+        q, k, v, do = (torch.randn(shape, generator=g, device="cuda")
+                       .to(dtype) for shape in ((B, Hq, S, hd),
+                                                (B, Hkv, S, hd),
+                                                (B, Hkv, S, hd),
+                                                (B, Hq, S, hd)))
+        out, lse = fa.flash_attention(q, k, v, window=window,
+                                      return_lse=True)
+        got = fa.flash_attention_bwd(q, k, v, out, do, lse, window=window)
+        want = ref.flash_attention_bwd(q, k, v, out, do, window=window)
+        torch.cuda.synchronize()
+        check(all(x.dtype == dtype and x.shape == y.shape
+                  for x, y in zip(got, (q, k, v), strict=True)),
+              f"flash_attention_bwd {tuple(q.shape)}: dtypes or shapes")
+        err = bwd_err(torch, got, want)
+        check(err <= tol, f"flash_attention_bwd {tuple(q.shape)} {dtype} "
+                          f"window={window}: {err} of the largest gradient "
+                          f"over {tol}")
+        faults = {"lse one row off": fa.flash_attention_bwd(
+            q, k, v, out, do, lse.roll(1, -1), window=window)}
+        if window is not None and window > 64:
+            faults["window one kv tile short"] = fa.flash_attention_bwd(
+                q, k, v, out, do, lse, window=window - 64)
+        planted_errs = {n: bwd_err(torch, f, want) for n, f in faults.items()}
+        check(all(e > tol for e in planted_errs.values()),
+              f"flash_attention_bwd planted faults not caught: "
+              f"{planted_errs}")
+        del got, faults
+
+        def kernel():
+            return fa.flash_attention_bwd(q, k, v, out, do, lse,
+                                          window=window)
+        ms = cuda_ms(torch, kernel, reps=5)
+        dev = device_ms(torch, kernel, FLASH_BWD_KERNELS, reps=3,
+                        per_call=3)
+        plain = cuda_ms(torch, lambda: ref.flash_attention_bwd(
+            q, k, v, out, do, window=window), reps=3, warmup=1)
+        del want
+        # the library yardstick: SDPA's backward over kv heads expanded to
+        # Hq, with the same boolean mask (timed only; the port never
+        # calls it)
+        qg = q.detach().requires_grad_()
+        ke = k.repeat_interleave(Hq // Hkv, dim=1).requires_grad_()
+        ve = v.repeat_interleave(Hq // Hkv, dim=1).requires_grad_()
+        if window is None:
+            o = F.scaled_dot_product_attention(qg, ke, ve, is_causal=True)
+        else:
+            pos = torch.arange(S, device="cuda")
+            d = pos[:, None] - pos[None, :]
+            o = F.scaled_dot_product_attention(
+                qg, ke, ve, attn_mask=(d >= 0) & (d < window))
+        library = cuda_ms(torch, lambda: torch.autograd.grad(
+            o, (qg, ke, ve), do, retain_graph=True), reps=5)
+        del o, qg, ke, ve
+        pairs = B * Hq * causal_pairs(S, window)
+        esize = q.element_size()
+        nbytes = esize * (4 * B * Hq * S * hd + 4 * B * Hkv * S * hd) \
+            + 4 * B * Hq * S
+        row = kernel_row(
+            "flash_attention_bwd", FLASH_BWD_SOURCE,
+            "src/repro/kernels/flash_attention.py:78", max_abs_err=err,
+            ms=ms, plain_ms=plain, nbytes=nbytes, ops=10 * hd * pairs,
+            library_ms=library,
+            shape=f"B={B},Hq={Hq},Hkv={Hkv},S={S},hd={hd},"
+                  f"{str(dtype).split('.')[-1]},window={window}",
+            ops_per_s=BF16_TC_OPS_PER_S if dtype == bf16 else FP32_OPS_PER_S,
+            dev_ms=dev)
+        row["planted"] = planted_errs
+        row["limit"] = tol
+        rows.append(row)
+        del q, k, v, do, out, lse
+    return rows[0], rows[1:]
+
+
+def check_lru_scan_bwd(torch) -> dict:
+    """lru_scan_bwd against its plain version at the training shape, with
+    and without h0 (da, db and dh0 within LRU_BWD_RTOL of their largest
+    magnitudes); a planted fault (dh one step late) must exceed it."""
+    from repro_torch.kernels import lru_scan as lru
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 6)
+    errs, planted_errs = {}, {}
+    for with_h0 in (False, True):
+        a = 0.5 + 0.499 * torch.rand(LRU_TRAIN_SHAPE, generator=g,
+                                     device="cuda")
+        b = torch.randn(LRU_TRAIN_SHAPE, generator=g, device="cuda")
+        h0 = (torch.randn((LRU_TRAIN_SHAPE[0], LRU_TRAIN_SHAPE[2]),
+                          generator=g, device="cuda") if with_h0 else None)
+        h = lru.lru_scan(a, b, h0)
+        dh = torch.randn(LRU_TRAIN_SHAPE, generator=g, device="cuda")
+        got = lru.lru_scan_bwd(a, h, dh, h0, want_dh0=True)
+        want = ref.lru_scan_bwd(a, h, dh, h0)
+        torch.cuda.synchronize()
+        errs[with_h0] = bwd_err(torch, got, want)
+        check(errs[with_h0] <= LRU_BWD_RTOL,
+              f"lru_scan_bwd h0={with_h0}: {errs[with_h0]} of the largest "
+              f"gradient over {LRU_BWD_RTOL}")
+        planted_errs[with_h0] = bwd_err(
+            torch, lru.lru_scan_bwd(a, h, dh.roll(1, 1), h0,
+                                    want_dh0=True), want)
+        check(planted_errs[with_h0] > LRU_BWD_RTOL,
+              f"lru_scan_bwd planted fault not caught: {planted_errs}")
+        if not with_h0:
+            ms = cuda_ms(torch, lambda: lru.lru_scan_bwd(a, h, dh))
+            dev = device_ms(torch, lambda: lru.lru_scan_bwd(a, h, dh),
+                            "lru_scan_bwd")
+            plain = cuda_ms(torch, lambda: ref.lru_scan_bwd(a, h, dh),
+                            reps=3, warmup=1)
+        del a, b, h0, h, dh, got, want
+    log(f"phase 8a lru_scan_bwd max rel err {errs} (limit {LRU_BWD_RTOL}), "
+        f"planted dh one step late {planted_errs}")
+    B, S, C = LRU_TRAIN_SHAPE
+    n = B * S * C
+    row = kernel_row(
+        "lru_scan_bwd", "src/repro_torch/csrc/lru_scan.cu",
+        "src/repro/kernels/lru_scan.py:52", max_abs_err=errs[False], ms=ms,
+        plain_ms=plain, nbytes=20 * n, ops=3 * n, library_ms=None,
+        shape=f"B={B},S={S},C={C},float32", dev_ms=dev)
+    row["planted"] = planted_errs[False]
+    row["limit"] = LRU_BWD_RTOL
+    return row
+
+
+def training_batch(cfg, index: int, batch: int = TRAIN_BATCH,
+                   seq: int = TRAIN_SEQ) -> dict:
+    """Batch ``index`` of the training pipeline (Markov data, seed 0)."""
+    from repro_torch.train.data import TokenPipeline
+
+    return TokenPipeline(cfg.vocab_size, batch, seq,
+                         seed=SEED).batch_view(index).value()
+
+
+def check_training_gradients(torch, cfg, device: str = "cuda",
+                             batch: int = TRAIN_BATCH,
+                             seq: int = TRAIN_SEQ) -> dict:
+    """One unit (3 layers) of ``cfg`` at full width: the loss and every
+    parameter's gradient through the kernel route (forward and backward
+    kernels) against the plain route (autograd of the plain versions), both
+    on the card from the same float32 master weights (seed 0) and batch.
+    Each gradient within GRAD_RTOL of its largest magnitude (bf16 compute on
+    both routes, rounded at other places); faults planted in the backward
+    kernels must exceed it."""
+    import dataclasses
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lru_scan as lru
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(cfg, num_layers=len(cfg.pattern))
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED)
+    model = tf.init_params(cfg, g, device, trainable=True)
+    data = training_batch(cfg, 0, batch, seq)
+
+    def grads(use_kernel):
+        model.zero_grad(set_to_none=True)
+        loss, _ = steps.loss_fn(model, cfg, data, use_kernel)
+        loss.backward()
+        out = {n: p.grad for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return float(loss.detach()), out
+
+    t = time.perf_counter()
+    plain_loss, plain = grads(False)
+    sync(torch, device)
+    plain_s = time.perf_counter() - t
+    t = time.perf_counter()
+    kernel_loss, kernel = grads(None)
+    sync(torch, device)
+    kernel_s = time.perf_counter() - t
+    errs = {n: max_rel_err(torch, kernel[n], plain[n]) for n in plain}
+    del kernel
+    loss_err = abs(kernel_loss - plain_loss) / abs(plain_loss)
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= GRAD_RTOL and loss_err <= GRAD_RTOL,
+          f"kernel vs plain gradients: {worst} off by {errs[worst]}, loss "
+          f"by {loss_err} (limit {GRAD_RTOL})")
+    faults = {"attention backward without its window": planted(
+                  "flash_attention_bwd", window_to(None), fa),
+              "scan backward with dh one step late": planted(
+                  "lru_scan_bwd", lambda args, kw: (
+                      args[:2] + (args[2].roll(1, 1),) + args[3:], kw),
+                  lru)}
+    planted_errs = {}
+    for name, fault in faults.items():
+        with fault:
+            _, bad = grads(None)
+        planted_errs[name] = max(max_rel_err(torch, bad[n], plain[n])
+                                 for n in plain)
+        del bad
+    missed = [n for n, e in planted_errs.items() if e <= GRAD_RTOL]
+    check(not missed, f"planted faults not caught: {planted_errs}")
+    del model, plain
+    return {"layers": cfg.num_layers, "loss_kernel": kernel_loss,
+            "loss_plain": plain_loss, "loss_rel_err": loss_err,
+            "worst": worst, "worst_rel_err": errs[worst],
+            "per_param": errs, "planted": planted_errs,
+            "kernel_s": kernel_s, "plain_s": plain_s}
+
+
+def launches_per_step(cfg) -> dict:
+    """Kernel launches of one train step with cfg.remat "full": the units'
+    forward kernels run twice (the forward and the recompute in the
+    backward), the tail's once; each layer's backward kernel once."""
+    unit = list(cfg.pattern) * cfg.num_units
+    tail = list(cfg.tail_pattern)
+    rg_u, rg_t = unit.count("rglru"), tail.count("rglru")
+    at_u, at_t = len(unit) - rg_u, len(tail) - rg_t
+    return {"lru_scan": 2 * rg_u + rg_t, "lru_scan_bwd": rg_u + rg_t,
+            "flash_attention": 2 * at_u + at_t,
+            "flash_attention_bwd": at_u + at_t}
+
+
+def train_model(torch, cfg, device: str = "cuda", batch: int = TRAIN_BATCH,
+                seq: int = TRAIN_SEQ) -> dict:
+    """The main path of phase 8: ``launch.train.run`` on ``cfg`` at full
+    width and depth, TRAIN_WARMUP + TRAIN_STEPS steps of TRAIN_BATCH x
+    TRAIN_SEQ Markov tokens (seed 0), with the launch counts reset just
+    before and read just after."""
+    import math
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as ptrain
+
+    steps_n = TRAIN_WARMUP + TRAIN_STEPS
+    times: list[float] = []
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    losses, state = ptrain.run(cfg, steps=steps_n, batch=batch, seq=seq,
+                               ckpt_dir=None, log_every=1, seed=SEED,
+                               device=device, timings=times)
+    sync(torch, device)
+    wall = time.perf_counter() - t
+    counts = ops.launch_counts()
+    routes = ops.route_counts()["flash_attention"]
+    want = {k: v * steps_n if on_card else 0
+            for k, v in launches_per_step(cfg).items()}
+    for name, n in want.items():
+        check(counts[name] == n,
+              f"training launched {name} {counts[name]} times, expected {n} "
+              f"({steps_n} steps)")
+    check(routes["wgmma"] == want["flash_attention"],
+          f"training flash_attention routes {routes}")
+    vals = [losses[i] for i in range(steps_n)]
+    check(all(math.isfinite(x) for x in vals), f"losses {vals}")
+    check(abs(vals[0] - math.log(cfg.vocab_size)) < FIRST_LOSS_TOL,
+          f"first loss {vals[0]}, ln(vocab) {math.log(cfg.vocab_size)}")
+    step_s = statistics.median(times[TRAIN_WARMUP:])
+    return {"cfg": cfg, "state": state, "losses": vals, "times": times,
+            "step_s": step_s, "tokens_per_s": batch * seq / step_s,
+            "wall_s": wall, "counts": counts, "routes": routes,
+            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                         if on_card else None),
+            "params": sum(p.numel() for p in state["params"].parameters())}
+
+
+def train_time_split(torch, run: dict) -> dict:
+    """One more step of the trained state, taken apart with a synchronise
+    between the parts: forward (embedding, units, tail, final norm), loss
+    chunks, backward (with the units' and the chunks' recompute),
+    optimizer; then the units' forward alone without grad, the size of the
+    backward's recompute. The device busy share and the kernels that take
+    the most device time come from ``torch.profiler`` (device activity
+    only) over the step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.loss import chunked_cross_entropy
+    from repro_torch.train.optimizer import OptConfig, adamw_update
+
+    cfg, state = run["cfg"], run["state"]
+    model = state["params"]
+    batch = training_batch(cfg, TRAIN_WARMUP + TRAIN_STEPS)
+    inputs = torch.from_numpy(batch["inputs"]).cuda()
+    labels = torch.from_numpy(batch["labels"]).cuda()
+    pos = steps.make_positions(TRAIN_BATCH, TRAIN_SEQ, "cuda")
+    marks = []
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mark()
+        hidden, _ = tf.forward(model, cfg, inputs, pos)
+        mark()
+        loss_sum, cnt = chunked_cross_entropy(model.lm_head, hidden, labels,
+                                              chunk=cfg.loss_chunk)
+        loss = loss_sum / cnt
+        mark()
+        loss.backward()
+        mark()
+        adamw_update(OptConfig(), model, state["opt"])
+        model.zero_grad(set_to_none=True)
+        mark()
+    del hidden, loss_sum, loss
+    with torch.no_grad():
+        mark()
+        x = tf.embed_inputs(model, cfg, inputs, pos)
+        for unit in model.units:
+            for i, kind in enumerate(cfg.pattern):
+                x, _ = tf.apply_block(unit[f"b{i}"], x, cfg, kind, pos)
+        mark()
+        del x
+    fwd, loss_s, bwd, opt = (b - a for a, b in zip(marks[:4], marks[1:5],
+                                                   strict=True))
+    units = marks[6] - marks[5]
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    return {"forward_s": fwd, "loss_chunks_s": loss_s, "backward_s": bwd,
+            "optimizer_s": opt, "units_forward_no_grad_s": units,
+            "step_s": marks[4] - marks[0],
+            "busy_share": busy_us / ((marks[4] - marks[0]) * 1e6),
+            "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                               for e in top}}
+
+
+def train_fault_path(torch, cfg, device: str = "cuda") -> dict:
+    """The driver's fault path on the card, on the reduced config: a run
+    that fails at step 8 and restores snapshot(latest) (checkpoints every 5
+    steps) against an uninterrupted run (losses equal within 1e-6: the
+    kernels are deterministic and the restore copies float32 exactly); the
+    same with --compress (within 1e-3: as in the reference, the
+    error-feedback state is not rolled back with the checkpoint, so the
+    replayed steps see another residual); then the port's checkpoint is
+    restored by ``launch.serve.Server.from_checkpoint``, which generates."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.launch import train as ptrain
+    from repro_torch.launch.serve import Server
+
+    build = pathlib.Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    kw = {"steps": 12, "batch": 4, "seq": 64, "ckpt_every": 5,
+          "log_every": 100, "seed": SEED, "device": device}
+    out = {}
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        clean, _ = ptrain.run(cfg, ckpt_dir=f"{tmp}/clean", **kw)
+        fault, state = ptrain.run(cfg, ckpt_dir=f"{tmp}/fault", fail_at=8,
+                                  **kw)
+        c_clean, _ = ptrain.run(cfg, ckpt_dir=f"{tmp}/cclean", compress=True,
+                                **kw)
+        c_fault, _ = ptrain.run(cfg, ckpt_dir=f"{tmp}/cfault", compress=True,
+                                fail_at=8, **kw)
+        check(int(state["step"]) == kw["steps"], f"step {state['step']}")
+        for name, got, want, tol in (("fail_at", fault, clean, 1e-6),
+                                     ("compress", c_fault, c_clean, 1e-3)):
+            diff = max(abs(got[i] - want[i]) / abs(want[i])
+                       for i in range(kw["steps"]))
+            check(len(got) == kw["steps"] and diff <= tol,
+                  f"{name}: losses after recovery off by {diff} (limit {tol})")
+            out[f"{name}_rel_diff"] = diff
+        server = Server.from_checkpoint(cfg, f"{tmp}/fault", device=device)
+        prompts = np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, (2, 16)).astype(np.int32)
+        tokens = server.generate(prompts, 4)
+        check(tokens.shape == (2, 4) and bool(((tokens >= 0)
+                                               & (tokens < cfg.vocab_size))
+                                              .all()),
+              f"served tokens {tokens}")
+        out.update({"losses": [clean[i] for i in range(kw["steps"])],
+                    "compress_losses": [c_clean[i]
+                                        for i in range(kw["steps"])],
+                    "served": tokens.tolist()})
+    return out
+
+
 def main() -> int:
     root = pathlib.Path(__file__).resolve().parent
     if not (root / "src" / "repro_torch" / "csrc").is_dir():
@@ -1597,7 +2067,7 @@ def main() -> int:
     log(f"phase 4 final-shape segment_sum + card/CPU agreement on "
         f"{compared} answers: {time.perf_counter() - t:.3f} s")
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, reduced
 
     t = time.perf_counter()
     model_run = serve_model(torch, get_config(MODEL_ARCH))
@@ -1683,12 +2153,67 @@ def main() -> int:
         f"partitions vs join_group_by {json.dumps(sharded)}; phase "
         f"{time.perf_counter() - t:.3f} s")
     del rpc
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    fa_bwd_row, fa_bwd_extra = check_flash_attention_bwd(torch)
+    lru_bwd_row = check_lru_scan_bwd(torch)
+    extra.extend(fa_bwd_extra)
+    log("phase 8a flash_attention_bwd vs plain (max rel err, limit, "
+        "planted): " + "; ".join(
+            f"{r['shape']} {r['max_abs_err']:.3e} {r['limit']} "
+            f"{json.dumps(r['planted'])}" for r in [fa_bwd_row]
+            + fa_bwd_extra))
+    log(f"phase 8a backward kernels vs plain: {time.perf_counter() - t:.3f}"
+        " s")
+    t = time.perf_counter()
+    train_cfg = get_config(MODEL_ARCH)
+    grads = check_training_gradients(torch, train_cfg)
+    torch.cuda.empty_cache()
+    log(f"phase 8b one unit ({grads['layers']} layers) at full width, "
+        f"kernel vs plain route on the card: loss {grads['loss_kernel']:.6f}"
+        f" vs {grads['loss_plain']:.6f}; worst gradient {grads['worst']} "
+        f"{grads['worst_rel_err']:.3e} (limit {GRAD_RTOL}); planted "
+        f"{json.dumps(grads['planted'])}; kernel route "
+        f"{grads['kernel_s']:.3f} s, plain {grads['plain_s']:.3f} s; phase "
+        f"{time.perf_counter() - t:.3f} s")
+    log("phase 8b per-parameter gradient max rel err: " + json.dumps(
+        {k: float(f"{v:.3e}") for k, v in grads["per_param"].items()}))
+    t = time.perf_counter()
+    train_run = train_model(torch, train_cfg)
+    train_counts = train_run["counts"]
+    tokens_step = TRAIN_BATCH * TRAIN_SEQ
+    log(f"phase 8c train {MODEL_ARCH}: {train_run['params']} parameters, "
+        f"{TRAIN_WARMUP} + {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens: losses "
+        + " ".join(f"{x:.4f}" for x in train_run["losses"])
+        + "; step s " + " ".join(f"{x:.3f}" for x in train_run["times"])
+        + f"; median timed step {train_run['step_s']:.3f} s, "
+        f"{train_run['tokens_per_s']:.1f} tokens/s ({tokens_step} per step);"
+        f" peak device memory {train_run['peak_gib']:.3f} GiB; launches "
+        f"{train_counts} (per step {launches_per_step(train_cfg)}), "
+        f"flash_attention routes {train_run['routes']}; run "
+        f"{train_run['wall_s']:.3f} s")
+    split = train_time_split(torch, train_run)
+    log(f"phase 8c time split of one more step: {json.dumps(split)}")
+    del train_run
+    torch.cuda.empty_cache()
+    fault = train_fault_path(torch, reduced(train_cfg))
+    log(f"phase 8d fault path on reduced {MODEL_ARCH}: {json.dumps(fault)}; "
+        f"phase 8 {time.perf_counter() - t:.3f} s")
+    rows.extend([lru_bwd_row, fa_bwd_row])
 
     for row in rows:
         name = row["name"]
+        if name in ("lru_scan_bwd", "flash_attention_bwd"):
+            row["launches"] = train_counts[name]
+            continue
         row["launches"] = (model_counts if name in ("lru_scan",
                                                     "flash_attention")
                            else counts)[name]
+        if name in ("lru_scan", "flash_attention"):
+            # the training path's launches of the same kernel (phase 8c)
+            row["launches_training"] = train_counts[name]
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"
                     or m.startswith("repro."))

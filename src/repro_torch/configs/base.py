@@ -209,7 +209,6 @@ UNPORTED = {
     "phi3.5-moe-42b-a6.6b": "the MoE family (nn/moe.py)",
     "internvl2-76b": "frames input (embed_mode='frames')",
     "musicgen-medium": "frames input (embed_mode='frames')",
-    "qwen2.5-14b": "the dense attention configs (qkv bias, parity tests)",
     "qwen1.5-110b": "the dense attention configs (qkv bias, parity tests)",
     "starcoder2-7b": "the dense attention configs (gelu_mlp, parity tests)",
     "gemma3-27b": "the dense attention configs (sandwich and qk norms, "
@@ -234,7 +233,9 @@ def all_configs() -> dict[str, ModelConfig]:
 
 def _load_all() -> None:
     # import for registration side effects
-    from repro_torch.configs import recurrentgemma_2b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        qwen2_5_14b, recurrentgemma_2b,
+    )
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

@@ -67,9 +67,9 @@ struct Layout {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Hq,
-                       int group, int S, int causal, int window,
-                       float scale) {
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int Hq, int group, int S,
+                       int causal, int window, float scale) {
   using L = Layout<HD>;
   constexpr int kCols = HD / 16;  // output columns per thread
   extern __shared__ float smem[];
@@ -205,13 +205,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* row = out + q_off + (long long)pq * HD;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) store(row + tx + 16 * c, acc[i][c] / denom);
+    // log of the row's softmax denominator in the scaled scores, for the
+    // backward (flash_attention_bwd.cu); only when asked for
+    if (lse != nullptr && tx == 0) lse[q_off / HD + pq] = m[i] + logf(denom);
   }
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Hq, int Hkv, int S, int causal, int window, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Hq, int Hkv, int S, int causal, int window,
+           float scale, cudaStream_t stream) {
   const size_t bytes = Layout<HD>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
       flash_attention_kernel<T, HD>,
@@ -219,21 +222,21 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   if (e != cudaSuccess) return (int)e;
   dim3 grid((unsigned)((S + kBQ - 1) / kBQ), (unsigned)Hq, (unsigned)B);
   flash_attention_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, Hq, Hq / Hkv, S,
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, Hq, Hq / Hkv, S,
       causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_hd(const void* q, const void* k, const void* v, void* out,
-                int B, int Hq, int Hkv, int S, int hd, int causal, int window,
-                float scale, cudaStream_t s) {
+                float* lse, int B, int Hq, int Hkv, int S, int hd, int causal,
+                int window, float scale, cudaStream_t s) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, out, B, Hq, Hkv, S, causal, window, scale, s);
-    case 32: return launch<T, 32>(q, k, v, out, B, Hq, Hkv, S, causal, window, scale, s);
-    case 64: return launch<T, 64>(q, k, v, out, B, Hq, Hkv, S, causal, window, scale, s);
-    case 128: return launch<T, 128>(q, k, v, out, B, Hq, Hkv, S, causal, window, scale, s);
-    case 256: return launch<T, 256>(q, k, v, out, B, Hq, Hkv, S, causal, window, scale, s);
+    case 16: return launch<T, 16>(q, k, v, out, lse, B, Hq, Hkv, S, causal, window, scale, s);
+    case 32: return launch<T, 32>(q, k, v, out, lse, B, Hq, Hkv, S, causal, window, scale, s);
+    case 64: return launch<T, 64>(q, k, v, out, lse, B, Hq, Hkv, S, causal, window, scale, s);
+    case 128: return launch<T, 128>(q, k, v, out, lse, B, Hq, Hkv, S, causal, window, scale, s);
+    case 256: return launch<T, 256>(q, k, v, out, lse, B, Hq, Hkv, S, causal, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -244,18 +247,19 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike), all
 // contiguous. hd in {16, 32, 64, 128, 256}; Hq % Hkv == 0; window <= 0
-// means no window.
+// means no window. lse: (B, Hq, S) float32 log-sum-exp of each row's
+// scaled scores, written when not null.
 int rt_flash_attention(const void* q, const void* k, const void* v,
-                       void* out, int dtype, int B, int Hq, int Hkv, int S,
-                       int hd, int causal, int window, float scale,
-                       void* stream) {
+                       void* out, float* lse, int dtype, int B, int Hq,
+                       int Hkv, int S, int hd, int causal, int window,
+                       float scale, void* stream) {
   if (B <= 0 || Hq <= 0 || S <= 0) return (int)cudaGetLastError();
   if (Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return dispatch_hd<float>(q, k, v, out, B, Hq, Hkv, S, hd, causal, window, scale, s);
+    return dispatch_hd<float>(q, k, v, out, lse, B, Hq, Hkv, S, hd, causal, window, scale, s);
   if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, S, hd, causal, window, scale, s);
+    return dispatch_hd<__nv_bfloat16>(q, k, v, out, lse, B, Hq, Hkv, S, hd, causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -88,6 +88,7 @@ constexpr int kThreads = 384; // producer + two consumer warpgroups
 constexpr int kBox = 64;      // bf16 columns per TMA box: one 128-B swizzle row
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int HD>
 struct Smem {
@@ -118,9 +119,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
-                             __nv_bfloat16* __restrict__ out, int Hq,
-                             int group, int S, int causal, int window,
-                             float scale) {
+                             __nv_bfloat16* __restrict__ out,
+                             float* __restrict__ lse, int Hq, int group,
+                             int S, int causal, int window, float scale) {
   using L = Smem<HD>;
   constexpr int kChunks = HD / kBox;
   extern __shared__ uint8_t smem_raw[];
@@ -291,6 +292,13 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
     l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
     const float den_a = fmaxf(l_a, 1e-30f), den_b = fmaxf(l_b, 1e-30f);
+    // log-sum-exp of each row's scaled scores for the backward
+    // (flash_attention_bwd.cu), only when asked for: m is in log2 units
+    if (lse != nullptr && (lane & 3) == 0) {
+      float* lrow = lse + (size_t)bh * S;
+      if (row_a < S) lrow[row_a] = m_a * kLn2 + logf(den_a);
+      if (row_b < S) lrow[row_b] = m_b * kLn2 + logf(den_b);
+    }
     __nv_bfloat16* head = out + (size_t)bh * S * HD;
 #pragma unroll
     for (int i = 0; i < HD / 2; i += 2) {
@@ -344,9 +352,9 @@ bool encode_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int hd,
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Hq, int Hkv, int S, int causal, int window, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Hq, int Hkv, int S, int causal, int window,
+           float scale, cudaStream_t stream) {
   EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
@@ -361,7 +369,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   if (e != cudaSuccess) return (int)e;
   dim3 grid((unsigned)(B * Hq), (unsigned)((S + kBQ - 1) / kBQ));
   flash_attention_wgmma_kernel<HD><<<grid, kThreads, bytes, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)out, Hq, Hq / Hkv, S, causal, window,
+      tq, tk, tv, (__nv_bfloat16*)out, lse, Hq, Hq / Hkv, S, causal, window,
       scale);
   return (int)cudaGetLastError();
 }
@@ -371,11 +379,13 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 extern "C" {
 
 // bf16 q, k, v and out, contiguous, 16-byte aligned. hd in {64, 128, 256};
-// Hq % Hkv == 0; S < 65536 * 128; window <= 0 means no window.
+// Hq % Hkv == 0; S < 65536 * 128; window <= 0 means no window. lse:
+// (B, Hq, S) float32 log-sum-exp of each row's scaled scores, written when
+// not null.
 int rt_flash_attention_sm90(const void* q, const void* k, const void* v,
-                            void* out, int B, int Hq, int Hkv, int S, int hd,
-                            int causal, int window, float scale,
-                            void* stream) {
+                            void* out, float* lse, int B, int Hq, int Hkv,
+                            int S, int hd, int causal, int window,
+                            float scale, void* stream) {
   if (B <= 0 || Hq <= 0 || S <= 0) return (int)cudaGetLastError();
   if (Hkv <= 0 || Hq % Hkv != 0 || (S + kBQ - 1) / kBQ > 65535)
     return (int)cudaErrorInvalidValue;
@@ -384,9 +394,9 @@ int rt_flash_attention_sm90(const void* q, const void* k, const void* v,
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = (cudaStream_t)stream;
   switch (hd) {
-    case 64: return launch<64>(q, k, v, out, B, Hq, Hkv, S, causal, window, scale, s);
-    case 128: return launch<128>(q, k, v, out, B, Hq, Hkv, S, causal, window, scale, s);
-    case 256: return launch<256>(q, k, v, out, B, Hq, Hkv, S, causal, window, scale, s);
+    case 64: return launch<64>(q, k, v, out, lse, B, Hq, Hkv, S, causal, window, scale, s);
+    case 128: return launch<128>(q, k, v, out, lse, B, Hq, Hkv, S, causal, window, scale, s);
+    case 256: return launch<256>(q, k, v, out, lse, B, Hq, Hkv, S, causal, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -28,7 +28,8 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("snapshot_resolve.cu", "segment_sum.cu", "lru_scan.cu",
-           "flash_attention.cu", "flash_attention_sm90.cu")
+           "flash_attention.cu", "flash_attention_sm90.cu",
+           "flash_attention_bwd.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -54,10 +55,14 @@ _SIGNATURES = {
                                       ctypes.c_int, _P]),
     "rt_lru_scan": (ctypes.c_int, [_P, _P, _P, _P, ctypes.c_longlong,
                                    ctypes.c_longlong, ctypes.c_longlong, _P]),
-    "rt_flash_attention": (ctypes.c_int, [_P, _P, _P, _P] + [ctypes.c_int] * 8
+    "rt_lru_scan_bwd": (ctypes.c_int, [_P] * 7 + [ctypes.c_longlong] * 3
+                        + [_P]),
+    "rt_flash_attention": (ctypes.c_int, [_P] * 5 + [ctypes.c_int] * 8
                            + [ctypes.c_float, _P]),
-    "rt_flash_attention_sm90": (ctypes.c_int, [_P, _P, _P, _P]
-                                + [ctypes.c_int] * 7 + [ctypes.c_float, _P]),
+    "rt_flash_attention_sm90": (ctypes.c_int, [_P] * 5 + [ctypes.c_int] * 7
+                                + [ctypes.c_float, _P]),
+    "rt_flash_attention_bwd": (ctypes.c_int, [_P] * 10 + [ctypes.c_int] * 8
+                               + [ctypes.c_float, _P]),
 }
 
 
@@ -183,6 +188,19 @@ def require(t: torch.Tensor, name: str, dtypes, ndim: int) -> None:
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise if a raw launcher would drop a gradient: its output has no
+    autograd history, so with grad mode on no input may require grad (the
+    autograd Function in the wrapper's module is the differentiable
+    entry)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: an input requires grad; the raw launcher would lose "
+            "its gradient (call it through kernels.ops, whose autograd "
+            "Function runs the backward kernel)")
 
 
 def int32_scalar(q, name: str) -> int:

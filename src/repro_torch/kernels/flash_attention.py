@@ -1,5 +1,6 @@
 """CUDA wrapper: blocked online-softmax attention (causal, GQA, optional
-sliding window), the attention of every local-attention layer's prefill.
+sliding window), the attention of every local-attention layer, and its
+gradient.
 
 Two kernels, two routes, chosen from (dtype, head dim) by :func:`route`
 before anything is launched:
@@ -13,12 +14,21 @@ before anything is launched:
 Each file's header says what bounds it on an H100. The plain version is in
 :mod:`repro_torch.kernels.ref`.
 
-The wrapper takes CUDA tensors only, checks dtype, shape, device,
-contiguity and (on the ``wgmma`` route) 16-byte alignment, allocates the
-output, launches on PyTorch's current stream and raises on a launch error.
-It never falls back from one route to the other. Per call that launches it
-adds one to ``flash_attention.launches`` and to its route's entry in
-``flash_attention.route_launches``.
+The gradient is a third file, ``csrc/flash_attention_bwd.cu`` (CUDA
+cores, float32 accumulation, any dtype and head dim above), fed the
+forward's per-row log-sum-exp.
+
+:func:`flash_attention` and :func:`flash_attention_bwd` are the raw
+launchers. Each takes CUDA tensors only, checks dtype, shape, device,
+contiguity and (on the ``wgmma`` route) 16-byte alignment, allocates its
+outputs, launches on PyTorch's current stream and raises on a launch
+error. The forward never falls back from one route to the other. Per call
+that launches, the forward adds one to ``flash_attention.launches`` and to
+its route's entry in ``flash_attention.route_launches``, the backward one
+to ``flash_attention_bwd.launches``. Their outputs carry no autograd
+history, so :func:`flash_attention` refuses an input that requires grad
+while grad mode is on; :class:`FlashAttentionFn` is the differentiable
+entry (``kernels.ops.flash_attention`` on a card).
 """
 from __future__ import annotations
 
@@ -45,55 +55,136 @@ def route(dtype: torch.dtype, hd: int) -> str:
     return "simt"
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window=None) -> torch.Tensor:
-    """q: (B, Hq, S, hd); k, v: (B, Hkv, S, hd), Hq % Hkv == 0, all of one
-    dtype (float32 or bfloat16), hd in ``HEAD_DIMS``. Returns
-    (B, Hq, S, hd) in q's dtype. ``window``: keys at least ``window``
-    positions before the query are masked (None: no window). Any S."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _check_qkv(q, k, v, extra=()) -> tuple[int, int, int, int, int]:
+    """Shapes (B, Hq, Hkv, S, hd) of q, k, v (and of the (B, Hq, S, hd)
+    tensors in ``extra``), after the checks every launcher makes."""
+    for name, t in (("q", q), ("k", k), ("v", v), *extra):
         if not isinstance(t, torch.Tensor) or t.dim() != 4:
             raise ValueError(f"{name}: expected a 4-d torch.Tensor")
     B, Hq, S, hd = q.shape
     Hkv = k.shape[1]
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q, k, v must share a dtype, got {q.dtype}, "
-                        f"{k.dtype}, {v.dtype}")
-    which = route(q.dtype, hd)
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in (("k", k), ("v", v), *extra):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} has dtype {t.dtype}, q {q.dtype}: "
+                            "all must share one")
+    route(q.dtype, hd)
+    for name, t in (("q", q), ("k", k), ("v", v), *extra):
         _lib.require(t, name, tuple(_DTYPES), 4)
     if tuple(k.shape) != (B, Hkv, S, hd) or v.shape != k.shape \
             or k.device != q.device or v.device != q.device:
         raise ValueError(f"k and v must be ({B}, Hkv, {S}, {hd}) on q's "
                          f"device, got {tuple(k.shape)}, {tuple(v.shape)}")
+    for name, t in extra:
+        if t.shape != q.shape or t.device != q.device:
+            raise ValueError(f"{name} must be {tuple(q.shape)} on q's "
+                             f"device, got {tuple(t.shape)}")
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    return B, Hq, Hkv, S, hd
+
+
+def _mask_args(S: int, hd: int, causal: bool, window, q) -> tuple:
     if window is not None and int(window) < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
-    out = torch.empty_like(q)
-    if not q.numel():
-        return out
-    args = (_lib.int32_scalar(S, "S"), hd, int(bool(causal)),
+    return (_lib.int32_scalar(S, "S"), hd, int(bool(causal)),
             0 if window is None else _lib.int32_scalar(window, "window"),
             hd ** -0.5, _lib.stream_of(q))
-    lib = _lib.load()
-    if which == "wgmma":
-        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-        if any(p % 16 for p in ptrs):
-            raise ValueError("flash_attention: the wgmma route needs "
-                             "16-byte aligned q, k, v")
-        with _lib.on_device(q):
-            code = lib.rt_flash_attention_sm90(*ptrs, B, Hq, Hkv, *args)
-    else:
-        with _lib.on_device(q):
-            code = lib.rt_flash_attention(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                _DTYPES[q.dtype], B, Hq, Hkv, *args)
-    _lib.check(code, f"flash_attention ({which})")
-    flash_attention.launches += 1
-    flash_attention.route_launches[which] += 1
-    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window=None,
+                    return_lse: bool = False):
+    """q: (B, Hq, S, hd); k, v: (B, Hkv, S, hd), Hq % Hkv == 0, all of one
+    dtype (float32 or bfloat16), hd in ``HEAD_DIMS``. Returns
+    (B, Hq, S, hd) in q's dtype, and with ``return_lse`` also the (B, Hq,
+    S) float32 log-sum-exp of each row's scaled, masked scores (the
+    backward's input). ``window``: keys at least ``window`` positions
+    before the query are masked (None: no window). Any S."""
+    B, Hq, Hkv, S, hd = _check_qkv(q, k, v)
+    which = route(q.dtype, hd)
+    args = _mask_args(S, hd, causal, window, q)
+    _lib.refuse_grad("flash_attention", q, k, v)
+    out = torch.empty_like(q)
+    lse = (torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if q.numel():
+        lse_ptr = None if lse is None else lse.data_ptr()
+        lib = _lib.load()
+        if which == "wgmma":
+            ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+            if any(p % 16 for p in ptrs):
+                raise ValueError("flash_attention: the wgmma route needs "
+                                 "16-byte aligned q, k, v")
+            with _lib.on_device(q):
+                code = lib.rt_flash_attention_sm90(*ptrs, lse_ptr, B, Hq,
+                                                   Hkv, *args)
+        else:
+            with _lib.on_device(q):
+                code = lib.rt_flash_attention(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    lse_ptr, _DTYPES[q.dtype], B, Hq, Hkv, *args)
+        _lib.check(code, f"flash_attention ({which})")
+        flash_attention.launches += 1
+        flash_attention.route_launches[which] += 1
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
 flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
+                        window=None):
+    """The gradient of :func:`flash_attention`: q, k, v and its ``out``
+    and ``lse`` (``return_lse=True``), ``dout`` the gradient of the loss
+    with respect to ``out``. Returns (dq, dk, dv) in q's dtype, each the
+    shape of its input; dk and dv sum over the query heads of each kv
+    head's group."""
+    B, Hq, Hkv, S, hd = _check_qkv(q, k, v, (("out", out), ("dout", dout)))
+    _lib.require(lse, "lse", (torch.float32,), 3)
+    if tuple(lse.shape) != (B, Hq, S) or lse.device != q.device:
+        raise ValueError(f"lse must be ({B}, {Hq}, {S}) on q's device, got "
+                         f"{tuple(lse.shape)}")
+    args = _mask_args(S, hd, causal, window, q)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel():
+        delta = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+        lib = _lib.load()
+        with _lib.on_device(q):
+            code = lib.rt_flash_attention_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                _DTYPES[q.dtype], B, Hq, Hkv, *args)
+        _lib.check(code, "flash_attention_bwd")
+        flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """:func:`flash_attention` with :func:`flash_attention_bwd` as its
+    backward. Only when an input needs a gradient does the forward write
+    the log-sum-exp and keep q, k, v, out and lse; serving (under
+    ``inference_mode``) passes no lse pointer and keeps nothing."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        if not any(ctx.needs_input_grad[:3]):
+            return flash_attention(q, k, v, causal=causal, window=window)
+        with torch.no_grad():
+            out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                       return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(),
+                                         lse, causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None

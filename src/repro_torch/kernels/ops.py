@@ -9,7 +9,11 @@ It takes the place of the reference's interpret switch
 * ``False`` forces the plain version (on whatever device the tensor is);
 * ``True`` demands the kernel and raises on a CPU tensor.
 
-There is no fallback: a CUDA launch that fails raises.
+There is no fallback: a CUDA launch that fails raises. ``lru_scan`` and
+``flash_attention`` are differentiable on both routes: on the kernel route
+through the autograd Functions of their wrapper modules, whose backwards
+are the CUDA kernels ``lru_scan_bwd`` and ``flash_attention_bwd``; on the
+plain route by autograd of the plain versions.
 """
 from __future__ import annotations
 
@@ -26,7 +30,9 @@ _WRAPPERS = {"liveness_mask": _sr.liveness_mask,
              "snapshot_resolve": _sr.snapshot_resolve,
              "segment_sum": _ss.segment_sum,
              "lru_scan": _lru.lru_scan,
-             "flash_attention": _fa.flash_attention}
+             "lru_scan_bwd": _lru.lru_scan_bwd,
+             "flash_attention": _fa.flash_attention,
+             "flash_attention_bwd": _fa.flash_attention_bwd}
 
 
 def wants_kernel(t: torch.Tensor, use_kernel) -> bool:
@@ -63,14 +69,14 @@ def liveness_mask(created, deleted, query_version, *, use_kernel=None):
 def lru_scan(a, b, h0=None, *, use_kernel=None):
     """RG-LRU recurrence over axis 1 of (B, S, C) float32 ``a``, ``b``."""
     if wants_kernel(a, use_kernel):
-        return _lru.lru_scan(a, b, h0)
+        return _lru.LruScanFn.apply(a, b, h0)
     return ref.lru_scan(a, b, h0)
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, use_kernel=None):
     """Attention of (B, Hq, S, hd) ``q`` over (B, Hkv, S, hd) ``k``, ``v``."""
     if wants_kernel(q, use_kernel):
-        return _fa.flash_attention(q, k, v, causal=causal, window=window)
+        return _fa.FlashAttentionFn.apply(q, k, v, causal, window)
     return ref.flash_attention(q, k, v, causal=causal, window=window)
 
 

@@ -2,7 +2,12 @@
 :mod:`repro_torch.kernels.ops` and the oracle every CUDA kernel is held
 against on the card. Same semantics as the Pallas functions they stand
 for (``repro/kernels/snapshot_resolve.py``, ``repro/kernels/segment_sum.py``,
-``repro/kernels/lru_scan.py``, ``repro/kernels/flash_attention.py``).
+``repro/kernels/lru_scan.py``, ``repro/kernels/flash_attention.py``), and
+the gradients of the last two (``lru_scan_bwd``, ``flash_attention_bwd``):
+the formulas of the CUDA backward kernels written out step by step, their
+oracle on the card. The CPU route differentiates ``lru_scan`` and
+``flash_attention`` by autograd instead, as the reference's ``jax.grad``
+differentiates its plain path.
 """
 from __future__ import annotations
 
@@ -55,11 +60,47 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor,
     B, S, C = a.shape
     h = (torch.zeros((B, C), dtype=torch.float32, device=a.device)
          if h0 is None else h0.float())
-    out = torch.empty((B, S, C), dtype=torch.float32, device=a.device)
+    steps = []
     for t in range(S):
         h = a[:, t] * h + b[:, t]
-        out[:, t] = h
-    return out
+        steps.append(h)
+    # one stack, not S writes into a buffer: autograd then keeps one node
+    # per step instead of copying the whole gradient at every write
+    if not steps:
+        return torch.empty((B, 0, C), dtype=torch.float32, device=a.device)
+    return torch.stack(steps, dim=1)
+
+
+def lru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
+                 h0: torch.Tensor | None = None):
+    """The gradient of :func:`lru_scan` given its coefficients ``a``, its
+    output ``h`` and ``dh`` = dL/dh, all (B, S, C): walking time backwards,
+    g_t = dh_t + a_{t+1} g_{t+1}, db_t = g_t, da_t = g_t h_{t-1} (h_{-1} =
+    h0, or 0) and dh0 = a_0 g_0. Returns (da, db, dh0), dh0 None when h0
+    is None."""
+    B, S, C = a.shape
+    da = torch.empty_like(a)
+    db = torch.empty_like(a)
+    g = torch.zeros((B, C), dtype=torch.float32, device=a.device)
+    zeros = torch.zeros_like(g)
+    for t in range(S - 1, -1, -1):
+        g = dh[:, t] + a[:, t + 1] * g if t + 1 < S else dh[:, t].clone()
+        db[:, t] = g
+        prev = h[:, t - 1] if t > 0 else (zeros if h0 is None else h0)
+        da[:, t] = g * prev
+    if h0 is None:
+        return da, db, None
+    return da, db, (a[:, 0] * g if S else torch.zeros_like(h0))
+
+
+def _mask(S: int, causal: bool, window, device) -> torch.Tensor:
+    pos = torch.arange(S, device=device)
+    mask = torch.ones((S, S), dtype=torch.bool, device=device)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window is not None:
+        mask &= (pos[:, None] - pos[None, :]) < window
+    return mask
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -73,13 +114,40 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = scale if scale is not None else hd ** -0.5
     qf = q.float().reshape(B, hkv, H // hkv, S, hd)
     scores = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) * scale
-    pos = torch.arange(S, device=q.device)
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= pos[None, :] <= pos[:, None]
-    if window is not None:
-        mask &= (pos[:, None] - pos[None, :]) < window
-    scores.masked_fill_(~mask, -1e30)
+    scores.masked_fill_(~_mask(S, causal, window, q.device), -1e30)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", probs, v.float())
     return out.reshape(B, H, S, hd).to(q.dtype)
+
+
+def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
+                        window=None, scale=None):
+    """The gradient of :func:`flash_attention` with respect to q, k, v,
+    given its output ``out`` and ``dout`` = dL/dout, in float32 over the
+    full S x S scores: S = scale q k^T masked, lse its row log-sum-exp,
+    P = exp(S - lse), delta = rowsum(dout * out), dV = P^T dout,
+    dS = P * (dout v^T - delta), dK = scale dS^T q, dQ = scale dS k; dK
+    and dV sum over each kv head's group of query heads. Returns (dq, dk,
+    dv) in the inputs' dtypes."""
+    B, H, S, hd = q.shape
+    hkv = k.shape[1]
+    g = H // hkv
+    scale = scale if scale is not None else hd ** -0.5
+    qf = q.float().reshape(B, hkv, g, S, hd)
+    kf, vf = k.float(), v.float()
+    of = out.float().reshape(B, hkv, g, S, hd)
+    gf = dout.float().reshape(B, hkv, g, S, hd)
+    scores = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf) * scale
+    scores.masked_fill_(~_mask(S, causal, window, q.device), -1e30)
+    lse = torch.logsumexp(scores, dim=-1, keepdim=True)
+    p = torch.exp(scores - lse)
+    del scores
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, gf)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", gf, vf)
+    delta = (gf * of).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    del p, dp
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf) * scale
+    return (dq.reshape(B, H, S, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.device import resolve_device, to_host
-from repro_torch.launch.steps import make_decode_step
+from repro_torch.launch.steps import make_decode_step, reference_state_like
 from repro_torch.models import params as mp
 from repro_torch.models import transformer as tf
 from repro_torch.nn.layers import strict_matmul
@@ -86,25 +86,15 @@ class Server:
         train state (params plus optimizer leaves) or of params alone, with
         the reference's flat keys, so either package's checkpoints load."""
         mgr = CheckpointManager(ckpt_dir)
-        params_like = mp.reference_shapes(cfg)
         # Only a STRUCTURE mismatch (a params-only checkpoint lacking the
         # optimizer leaves) falls back to the narrower shape; a corrupt
         # checkpoint, bad dtype or IO error surfaces as itself.
         try:
-            state = mgr.restore({"params": params_like,
-                                 **_opt_like(params_like)}, version)
+            state = mgr.restore(reference_state_like(cfg), version)
         except CheckpointStructureError:
-            state = mgr.restore({"params": params_like}, version)
+            state = mgr.restore(reference_state_like(cfg, with_opt=False),
+                                version)
         return cls(cfg, mp.from_reference(state["params"], cfg, device))
-
-
-def _opt_like(params_like):
-    def zeros(tree):
-        return {k: zeros(v) if isinstance(v, dict) else np.zeros_like(v)
-                for k, v in tree.items()}
-    return {"opt": {"m": zeros(params_like), "v": zeros(params_like),
-                    "count": np.zeros((), np.int32)},
-            "step": np.zeros((), np.int32)}
 
 
 def main():

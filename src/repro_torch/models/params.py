@@ -8,6 +8,9 @@ reference tree as NumPy arrays (``jax.tree.map(np.asarray, params)``, or a
 checkpoint's ``params``) maps onto the port's parameters by path:
 ``units/b0/mixer/in_x`` row ``u`` is ``units.{u}.b0.mixer.in_x``, and
 ``tail{i}/...`` is ``tail{i}....``. :func:`to_reference` is the inverse.
+The optimizer's moments ``m`` and ``v`` have the parameters' tree; they are
+dicts keyed by parameter name and cross with :func:`named_to_reference`
+and :func:`load_named`.
 """
 from __future__ import annotations
 
@@ -52,13 +55,14 @@ def _reference_path(name: str) -> tuple[str, int | None]:
     return "/".join(parts), None
 
 
-def load_tree(module: nn.Module, tree: dict) -> nn.Module:
-    """Copy a reference tree of arrays into ``module``'s parameters, each
-    cast to the parameter's dtype on its device. The tree must hold exactly
-    the module's parameters."""
+def load_named(named: dict, tree: dict) -> None:
+    """Copy a reference tree of arrays into the tensors of ``named`` ({port
+    parameter name: tensor}, a model's parameters or an optimizer moment),
+    in place, each cast to its tensor's dtype on its device. The tree must
+    hold exactly those tensors."""
     flat = flatten_tree(tree)
     seen = set()
-    for name, t in module.named_parameters():
+    for name, t in named.items():
         path, row = _reference_path(name)
         if path not in flat:
             raise KeyError(f"reference tree lacks {path!r}")
@@ -73,23 +77,31 @@ def load_tree(module: nn.Module, tree: dict) -> nn.Module:
     extra = sorted(set(flat) - seen)
     if extra:
         raise KeyError(f"reference tree has leaves the port lacks: {extra}")
+
+
+def load_tree(module: nn.Module, tree: dict) -> nn.Module:
+    """Copy a reference tree of arrays into ``module``'s parameters (see
+    :func:`load_named`)."""
+    load_named(dict(module.named_parameters()), tree)
     return module
 
 
-def from_reference(tree: dict, cfg: ModelConfig, device) -> Transformer:
+def from_reference(tree: dict, cfg: ModelConfig, device,
+                   trainable: bool = False) -> Transformer:
     """The port's model holding the reference's weights ``tree`` (nested
-    dict of NumPy arrays) on ``device``."""
-    return load_tree(Transformer(cfg, resolve_device(device)), tree)
+    dict of NumPy arrays) on ``device``; ``trainable`` as for
+    ``Transformer``."""
+    return load_tree(Transformer(cfg, resolve_device(device), trainable),
+                     tree)
 
 
-def to_reference(model: nn.Module, dtype=np.float32) -> dict:
-    """The reference's parameter tree (nested dict of NumPy arrays, units
-    stacked) of ``model``. Leaves are ``dtype``, the reference's
-    ``param_dtype``; on the CPU the round trip from_reference ->
-    to_reference is byte-identical."""
+def named_to_reference(named: dict, dtype=np.float32) -> dict:
+    """The reference's tree (nested dict of NumPy arrays, units stacked)
+    of ``named`` ({port parameter name: tensor}). Leaves are ``dtype``,
+    the reference's ``param_dtype``."""
     flat: dict = {}
     rows: dict = {}
-    for name, t in model.named_parameters():
+    for name, t in named.items():
         path, row = _reference_path(name)
         arr = to_host(t.float() if t.dtype == torch.bfloat16 else t) \
             .astype(dtype, copy=False)
@@ -100,6 +112,13 @@ def to_reference(model: nn.Module, dtype=np.float32) -> dict:
     for path, by_row in rows.items():
         flat[path] = np.stack([by_row[u] for u in range(len(by_row))])
     return unflatten_tree(flat)
+
+
+def to_reference(model: nn.Module, dtype=np.float32) -> dict:
+    """The reference's parameter tree of ``model`` (see
+    :func:`named_to_reference`); on the CPU the round trip from_reference
+    -> to_reference is byte-identical."""
+    return named_to_reference(dict(model.named_parameters()), dtype)
 
 
 def reference_shapes(cfg: ModelConfig) -> dict:

@@ -8,9 +8,16 @@ parameters on a leading axis and scans), then a tail of
 attention kinds and ``rglru`` with ``mlp`` feed-forwards; other kinds
 raise.
 
+A model is built for serving (bf16 frozen weights on a card) or, with
+``trainable=True``, for training: every parameter in ``cfg.param_dtype``
+(float32 master weights) with ``requires_grad``.
+
 Forward paths, each taking ``use_kernel`` (None: the CUDA kernels on a
 card, the plain versions on the CPU):
-  * ``forward``       — (B, S) tokens -> (B, S, D) hidden (+ aux, 0).
+  * ``forward``       — (B, S) tokens -> (B, S, D) hidden (+ aux, 0); the
+                        training body, with ``cfg.remat`` applied to the
+                        units (never to the tail blocks, as in the
+                        reference, which remats its scanned units only).
   * ``prefill``       — forward + the decode caches filled at the prompt's
                         end.
   * ``decode_step``   — one token with per-layer caches (KV / recurrent).
@@ -23,12 +30,16 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ATTN_KINDS, ModelConfig
 from repro_torch.nn import attention as attn
 from repro_torch.nn import recurrent as rec
-from repro_torch.nn.layers import (MLP, Norm, apply_norm, compute_dtype,
-                                   dense, embed_scale, mlp, normal_, param,
+from repro_torch.nn.layers import (MLP, Norm, apply_norm,
+                                   bf16_backward_enabled, bf16_backward_scope,
+                                   compute_dtype, dense, embed_scale, mlp,
+                                   normal_, param,
                                    sinusoidal_positions_dynamic, weight_dtype)
 
 
@@ -58,39 +69,46 @@ def _has_ffn(cfg: ModelConfig, kind: str) -> bool:
 class Block(nn.Module):
     """norm1 -> mixer -> residual, then norm2 -> ffn -> residual."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, device):
+    def __init__(self, cfg: ModelConfig, kind: str, device,
+                 trainable: bool = False):
         super().__init__()
-        self.norm1 = Norm(cfg.d_model, cfg.norm, device)
+        t = trainable
+        self.norm1 = Norm(cfg.d_model, cfg.norm, device, t)
         if kind in ATTN_KINDS:
-            self.mixer = attn.Attention(cfg, device)
+            self.mixer = attn.Attention(cfg, device, t)
         elif kind == "rglru":
-            self.mixer = rec.RGLRU(cfg, device)
+            self.mixer = rec.RGLRU(cfg, device, t)
         else:
             raise ValueError(kind)
         if _has_ffn(cfg, kind):
-            self.norm2 = Norm(cfg.d_model, cfg.norm, device)
-            self.ffn = MLP(cfg, device)
+            self.norm2 = Norm(cfg.d_model, cfg.norm, device, t)
+            self.ffn = MLP(cfg, device, t)
 
 
 class Transformer(nn.Module):
     """Parameters of the whole model, uninitialised (see
     :func:`init_params` and ``models/params.py``). ``device="meta"`` gives
-    the shapes without memory."""
+    the shapes without memory. ``trainable``: float32 master weights with
+    ``requires_grad`` (training), else bf16 frozen weights on a card
+    (serving)."""
 
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, cfg: ModelConfig, device, trainable: bool = False):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
-        wd = weight_dtype(cfg, device)
-        self.embed = param((cfg.vocab_size, cfg.d_model), wd, device)
-        self.lm_head = param((cfg.d_model, cfg.vocab_size), wd, device)
-        self.final_norm = Norm(cfg.d_model, cfg.norm, device)
+        t = trainable
+        wd = weight_dtype(cfg, device, t)
+        self.embed = param((cfg.vocab_size, cfg.d_model), wd, device,
+                           trainable=t)
+        self.lm_head = param((cfg.d_model, cfg.vocab_size), wd, device,
+                             trainable=t)
+        self.final_norm = Norm(cfg.d_model, cfg.norm, device, t)
         self.units = nn.ModuleList(
-            nn.ModuleDict({f"b{i}": Block(cfg, kind, device)
+            nn.ModuleDict({f"b{i}": Block(cfg, kind, device, t)
                            for i, kind in enumerate(cfg.pattern)})
             for _ in range(cfg.num_units))
         for i, kind in enumerate(cfg.tail_pattern):
-            self.add_module(f"tail{i}", Block(cfg, kind, device))
+            self.add_module(f"tail{i}", Block(cfg, kind, device, t))
 
     @property
     def device(self) -> torch.device:
@@ -111,12 +129,12 @@ _RANDOM = {"embed", "lm_head", "wq", "wk", "wv", "wo", "in_x", "in_gate",
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device) -> Transformer:
+                device, trainable: bool = False) -> Transformer:
     """A model with random weights drawn from ``generator`` (on
     ``device``). The bits differ from the reference's ``jax.random``
     draws; carry the reference's weights across with
     ``models.params.from_reference`` where they must agree."""
-    model = Transformer(cfg, device)
+    model = Transformer(cfg, device, trainable)
     for name, t in model.named_parameters():
         if name.rsplit(".", 1)[-1] in _RANDOM:
             normal_(t.data, generator)
@@ -174,13 +192,54 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
         .expand(B, S)
 
 
+# cfg.remat == "dots" saves the outputs of the matrix products (the
+# reference's jax.checkpoint_policies.checkpoint_dots) and recomputes the
+# rest
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_kwargs(cfg: ModelConfig) -> dict:
+    if cfg.remat == "dots":
+        return {"context_fn": lambda: create_selective_checkpoint_contexts(
+            _save_dots)}
+    return {}
+
+
 def forward(model: Transformer, cfg: ModelConfig, inputs, positions,
             use_kernel=None):
     """Body -> (hidden (B, S, D), aux). aux is the MoE load-balancing mean
-    in the reference; with no MoE here it is 0."""
+    in the reference; with no MoE here it is 0. With grad enabled and
+    ``cfg.remat`` "full" each unit runs under ``torch.utils.checkpoint``
+    (its activations are recomputed in the backward; "dots" keeps the
+    matrix products' outputs); "none", the tail blocks and a forward
+    without grad keep everything."""
     x = embed_inputs(model, cfg, inputs, positions)
-    for block, kind in model.blocks():
-        x, _ = apply_block(block, x, cfg, kind, positions, use_kernel)
+    remat = cfg.remat != "none" and torch.is_grad_enabled()
+    bwd16 = bf16_backward_enabled()
+
+    def unit_step(x, unit):
+        # the recompute runs in the backward, outside the caller's scope
+        with bf16_backward_scope(bwd16):
+            for i, kind in enumerate(cfg.pattern):
+                x, _ = apply_block(unit[f"b{i}"], x, cfg, kind, positions,
+                                   use_kernel)
+        return x
+
+    for unit in model.units:
+        if remat:
+            x = checkpoint(unit_step, x, unit, use_reentrant=False,
+                           **_remat_kwargs(cfg))
+        else:
+            x = unit_step(x, unit)
+    for i, kind in enumerate(cfg.tail_pattern):
+        x, _ = apply_block(getattr(model, f"tail{i}"), x, cfg, kind,
+                           positions, use_kernel)
     x = apply_norm(model.final_norm, x, cfg.norm)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 

@@ -39,27 +39,29 @@ def window_for(kind: str, cfg):
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg, device):
+    def __init__(self, cfg, device, trainable: bool = False):
         super().__init__()
         d = cfg.d_model
-        wd = weight_dtype(cfg, device)
+        wd = weight_dtype(cfg, device, trainable)
         pd = getattr(torch, cfg.param_dtype)
-        self.wq = param((d, cfg.q_dim), wd, device)
-        self.wk = param((d, cfg.kv_dim), wd, device)
-        self.wv = param((d, cfg.kv_dim), wd, device)
-        self.wo = param((cfg.q_dim, d), wd, device)
+        t = trainable
+        self.wq = param((d, cfg.q_dim), wd, device, trainable=t)
+        self.wk = param((d, cfg.kv_dim), wd, device, trainable=t)
+        self.wv = param((d, cfg.kv_dim), wd, device, trainable=t)
+        self.wo = param((cfg.q_dim, d), wd, device, trainable=t)
         if cfg.qkv_bias:
-            self.bq = param((cfg.q_dim,), pd, device, 0.0)
-            self.bk = param((cfg.kv_dim,), pd, device, 0.0)
-            self.bv = param((cfg.kv_dim,), pd, device, 0.0)
+            self.bq = param((cfg.q_dim,), pd, device, 0.0, t)
+            self.bk = param((cfg.kv_dim,), pd, device, 0.0, t)
+            self.bv = param((cfg.kv_dim,), pd, device, 0.0, t)
         if cfg.qk_norm:
             hd = cfg.resolved_head_dim
-            self.q_norm = param((hd,), torch.float32, device, 0.0)
-            self.k_norm = param((hd,), torch.float32, device, 0.0)
+            self.q_norm = param((hd,), torch.float32, device, 0.0, t)
+            self.k_norm = param((hd,), torch.float32, device, 0.0, t)
 
 
-def init_attn(cfg, generator: torch.Generator, device) -> Attention:
-    p = Attention(cfg, device)
+def init_attn(cfg, generator: torch.Generator, device,
+              trainable: bool = False) -> Attention:
+    p = Attention(cfg, device, trainable)
     for t in (p.wq, p.wk, p.wv, p.wo):
         normal_(t.data, generator)
     return p

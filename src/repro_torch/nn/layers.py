@@ -6,15 +6,26 @@ accumulate in float32; norms, softmax and gating run in float32. The
 parameters live in ``nn.Module``s; the math is plain functions on tensors
 that take the module as ``p``.
 
-Weights that reach only :func:`dense` or the embedding gather are held in
-the compute dtype (``weight_dtype``). The reference holds them in float32
-and casts them to bfloat16 before every product, so the result is the
-same bit for bit; holding them cast saves the cast's traffic on every
-step. Everything the reference reads in float32 (norm scales, gate
-vectors, the convolution) stays float32.
+For serving, weights that reach only :func:`dense` or the embedding
+gather are held in the compute dtype (``weight_dtype``). The reference
+holds them in float32 and casts them to bfloat16 before every product, so
+the result is the same bit for bit; holding them cast saves the cast's
+traffic on every step. Everything the reference reads in float32 (norm
+scales, gate vectors, the convolution) stays float32. A trainable model
+(``trainable=True``) keeps every parameter in ``cfg.param_dtype`` (the
+float32 master weights the optimizer updates) with ``requires_grad``;
+:func:`dense` casts to the compute dtype on every call, as the reference
+does.
+
+:func:`bf16_backward_scope` is the reference's performance knob: within
+it, :func:`dense` on bf16 compute takes an autograd Function whose
+activation gradient is bf16 while the weight gradient is accumulated in
+float32.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -29,11 +40,11 @@ def compute_dtype(device) -> torch.dtype:
         else torch.float32
 
 
-def weight_dtype(cfg, device) -> torch.dtype:
+def weight_dtype(cfg, device, trainable: bool = False) -> torch.dtype:
     """Dtype of the weights that only :func:`dense` or the embedding gather
-    read: the compute dtype on a CUDA device, ``cfg.param_dtype`` on the
-    CPU (where both are float32)."""
-    if torch.device(device).type == "cuda":
+    read: for serving the compute dtype on a CUDA device; else (the CPU,
+    where both are float32, or a trainable model) ``cfg.param_dtype``."""
+    if torch.device(device).type == "cuda" and not trainable:
         return compute_dtype(device)
     return getattr(torch, cfg.param_dtype)
 
@@ -48,13 +59,14 @@ def normal_(t: torch.Tensor, generator: torch.Generator,
     return t.copy_(src.normal_(0.0, std, generator=generator))
 
 
-def param(shape, dtype, device, fill=None) -> nn.Parameter:
-    """A frozen parameter (serving needs no gradient), uninitialised unless
-    ``fill`` is given."""
+def param(shape, dtype, device, fill=None,
+          trainable: bool = False) -> nn.Parameter:
+    """A parameter, uninitialised unless ``fill`` is given; frozen (serving
+    needs no gradient) unless ``trainable``."""
     t = torch.empty(shape, dtype=dtype, device=device)
     if fill is not None:
         t.fill_(fill)
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(t, requires_grad=trainable)
 
 
 def strict_matmul() -> None:
@@ -68,6 +80,53 @@ def strict_matmul() -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
+_BWD_BF16 = contextvars.ContextVar("repro_torch_bwd_bf16", default=False)
+
+
+@contextlib.contextmanager
+def bf16_backward_scope(enabled: bool = True):
+    """Within this scope :func:`dense` on bf16 compute (a CUDA device)
+    differentiates through :class:`DenseBf16Bwd`: activation gradients in
+    bf16, weight gradients accumulated in float32. On float32 compute (the
+    CPU) it changes nothing, as the reference's scope does nothing where
+    its compute dtype is float32. Code that recomputes a forward later
+    (``torch.utils.checkpoint``) must re-enter the scope with
+    :func:`bf16_backward_enabled`'s value."""
+    tok = _BWD_BF16.set(bool(enabled))
+    try:
+        yield
+    finally:
+        _BWD_BF16.reset(tok)
+
+
+def bf16_backward_enabled() -> bool:
+    return _BWD_BF16.get()
+
+
+class DenseBf16Bwd(torch.autograd.Function):
+    """x @ w in bf16 with float32 accumulation (a bf16 result), whose
+    backward gives dx as a bf16 product and dw accumulated in float32
+    (the reference's ``_dense_bf16bwd``, ``nn/layers.py:67-98``): the bf16
+    products are exact in float32, so dw is their float32 sum."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xc, wc = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        ctx.save_for_backward(xc, wc)
+        ctx.dtypes = (x.dtype, w.dtype)
+        return torch.matmul(xc, wc)
+
+    @staticmethod
+    def backward(ctx, g):
+        xc, wc = ctx.saved_tensors
+        x_dt, w_dt = ctx.dtypes
+        gc = g.to(torch.bfloat16)
+        dx = torch.matmul(gc, wc.t())
+        dw = torch.matmul(xc.reshape(-1, xc.shape[-1]).t().float(),
+                          gc.reshape(-1, gc.shape[-1]).float())
+        return dx.to(x_dt), dw.to(w_dt)
+
+
 def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
           ) -> torch.Tensor:
     """x @ w with inputs in the compute dtype, float32 accumulation and a
@@ -76,7 +135,10 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
     ``accum`` knob (the dtype of a tensor-parallel all-reduce) has no
     counterpart on one device."""
     dt = compute_dtype(x.device)
-    y = torch.matmul(x.to(dt), w.to(dt))
+    if _BWD_BF16.get() and dt == torch.bfloat16:
+        y = DenseBf16Bwd.apply(x, w)
+    else:
+        y = torch.matmul(x.to(dt), w.to(dt))
     if b is not None:
         y = (y.float() + b.float()).to(dt)
     return y
@@ -102,18 +164,18 @@ class Norm(nn.Module):
     """RMS norm (``scale``, zero-initialised: the multiplier is 1 + scale)
     or layer norm (``scale`` ones, ``bias`` zeros)."""
 
-    def __init__(self, d: int, kind: str, device):
+    def __init__(self, d: int, kind: str, device, trainable: bool = False):
         super().__init__()
         self.kind = kind
         if kind == "rms":
-            self.scale = param((d,), torch.float32, device, 0.0)
+            self.scale = param((d,), torch.float32, device, 0.0, trainable)
         else:
-            self.scale = param((d,), torch.float32, device, 1.0)
-            self.bias = param((d,), torch.float32, device, 0.0)
+            self.scale = param((d,), torch.float32, device, 1.0, trainable)
+            self.bias = param((d,), torch.float32, device, 0.0, trainable)
 
 
-def init_norm(d: int, kind: str, device) -> Norm:
-    return Norm(d, kind, device)
+def init_norm(d: int, kind: str, device, trainable: bool = False) -> Norm:
+    return Norm(d, kind, device, trainable)
 
 
 def apply_norm(p: Norm, x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -126,22 +188,23 @@ class MLP(nn.Module):
     """Gated (swiglu/geglu: ``w1``, ``w3``, ``w2``) or plain (``w1``,
     ``w2``, biases under ``mlp_bias``) feed-forward."""
 
-    def __init__(self, cfg, device):
+    def __init__(self, cfg, device, trainable: bool = False):
         super().__init__()
         d, ff = cfg.d_model, cfg.d_ff
-        wd = weight_dtype(cfg, device)
-        self.w1 = param((d, ff), wd, device)
+        wd = weight_dtype(cfg, device, trainable)
+        self.w1 = param((d, ff), wd, device, trainable=trainable)
         if cfg.ffn in ("swiglu", "geglu"):
-            self.w3 = param((d, ff), wd, device)
-        self.w2 = param((ff, d), wd, device)
+            self.w3 = param((d, ff), wd, device, trainable=trainable)
+        self.w2 = param((ff, d), wd, device, trainable=trainable)
         if cfg.ffn not in ("swiglu", "geglu") and cfg.mlp_bias:
             pd = getattr(torch, cfg.param_dtype)
-            self.b1 = param((ff,), pd, device, 0.0)
-            self.b2 = param((d,), pd, device, 0.0)
+            self.b1 = param((ff,), pd, device, 0.0, trainable)
+            self.b2 = param((d,), pd, device, 0.0, trainable)
 
 
-def init_mlp(cfg, generator: torch.Generator, device) -> MLP:
-    p = MLP(cfg, device)
+def init_mlp(cfg, generator: torch.Generator, device,
+             trainable: bool = False) -> MLP:
+    p = MLP(cfg, device, trainable)
     for name in ("w1", "w3", "w2"):
         if hasattr(p, name):
             normal_(getattr(p, name).data, generator)

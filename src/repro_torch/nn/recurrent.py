@@ -25,9 +25,10 @@ C_RGLRU = 8.0
 class Conv(nn.Module):
     """Depthwise causal convolution kernel ``w`` (width, channels)."""
 
-    def __init__(self, width: int, channels: int, dtype, device):
+    def __init__(self, width: int, channels: int, dtype, device,
+                 trainable: bool = False):
         super().__init__()
-        self.w = param((width, channels), dtype, device)
+        self.w = param((width, channels), dtype, device, trainable=trainable)
 
 
 def causal_conv(p: Conv, x: torch.Tensor) -> torch.Tensor:
@@ -55,27 +56,29 @@ def causal_conv_step(p: Conv, x_t: torch.Tensor, state: torch.Tensor):
 
 # -------------------------------------------------------------------- RG-LRU
 class RGLRU(nn.Module):
-    def __init__(self, cfg, device):
+    def __init__(self, cfg, device, trainable: bool = False):
         super().__init__()
         d = cfg.d_model
         w = cfg.lru_width or d
-        wd = weight_dtype(cfg, device)
+        wd = weight_dtype(cfg, device, trainable)
         pd = getattr(torch, cfg.param_dtype)
-        self.in_x = param((d, w), wd, device)
-        self.in_gate = param((d, w), wd, device)
+        t = trainable
+        self.in_x = param((d, w), wd, device, trainable=t)
+        self.in_gate = param((d, w), wd, device, trainable=t)
         # read in float32 by the reference (recurrent.py:26,37): param dtype
-        self.conv = Conv(cfg.conv_width, w, pd, device)
+        self.conv = Conv(cfg.conv_width, w, pd, device, t)
         # per-channel gate affines + recurrence parameter Lambda
-        self.w_ig = param((w,), torch.float32, device)
-        self.b_ig = param((w,), torch.float32, device, 0.0)
-        self.w_rg = param((w,), torch.float32, device)
-        self.b_rg = param((w,), torch.float32, device, 0.0)
-        self.a_param = param((w,), torch.float32, device, 2.0)
-        self.out = param((w, d), wd, device)
+        self.w_ig = param((w,), torch.float32, device, trainable=t)
+        self.b_ig = param((w,), torch.float32, device, 0.0, t)
+        self.w_rg = param((w,), torch.float32, device, trainable=t)
+        self.b_rg = param((w,), torch.float32, device, 0.0, t)
+        self.a_param = param((w,), torch.float32, device, 2.0, t)
+        self.out = param((w, d), wd, device, trainable=t)
 
 
-def init_rglru_block(cfg, generator: torch.Generator, device) -> RGLRU:
-    p = RGLRU(cfg, device)
+def init_rglru_block(cfg, generator: torch.Generator, device,
+                     trainable: bool = False) -> RGLRU:
+    p = RGLRU(cfg, device, trainable)
     for t in (p.in_x, p.in_gate, p.conv.w, p.w_ig, p.w_rg, p.out):
         normal_(t.data, generator)
     return p

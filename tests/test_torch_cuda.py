@@ -257,3 +257,152 @@ def test_offline_timeline_on_card_equals_cpu(cuda_device):
                                    rtol=0, atol=1e-6)
     assert torch.equal(labels, host_labels)
     assert np.array_equal(top, host_top)
+
+
+def _rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()) \
+        / max(float(want.float().abs().max()), 1e-30)
+
+
+def test_backward_kernels_match_plain(cuda_device):
+    """flash_attention_bwd and lru_scan_bwd against their plain versions,
+    fed the same forward output (and lse): relative to each gradient's
+    largest magnitude, 1e-2 in bf16 (one rounding of the output), 1e-4 in
+    float32, 1e-5 for the scan."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lru_scan as lru
+
+    rng = np.random.default_rng(5)
+    for B, Hq, Hkv, S, hd, window, dtype in (
+            (1, 2, 2, 64, 16, None, torch.float32),
+            (2, 4, 2, 100, 64, 30, torch.float32),
+            (1, 4, 1, 200, 32, 48, torch.bfloat16),
+            (1, 2, 1, 130, 128, None, torch.bfloat16),
+            (1, 10, 1, 192, 256, 64, torch.bfloat16)):
+        q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(
+            np.float32)).to(cuda_device, dtype) for s in (
+            (B, Hq, S, hd), (B, Hkv, S, hd), (B, Hkv, S, hd),
+            (B, Hq, S, hd)))
+        tol = 1e-4 if dtype == torch.float32 else 1e-2
+        out, lse = fa.flash_attention(q, k, v, window=window,
+                                      return_lse=True)
+        got = fa.flash_attention_bwd(q, k, v, out, do, lse, window=window)
+        want = ref.flash_attention_bwd(q, k, v, out, do, window=window)
+        for g, w in zip(got, want, strict=True):
+            assert g.dtype == dtype and _rel_err(g, w) <= tol
+    for S, with_h0 in ((1, True), (37, False), (300, True)):
+        a = torch.from_numpy((0.5 + 0.499 * rng.random((2, S, 33)))
+                             .astype(np.float32)).to(cuda_device)
+        b, dh = (torch.from_numpy(rng.standard_normal((2, S, 33))
+                                  .astype(np.float32)).to(cuda_device)
+                 for _ in range(2))
+        h0 = (torch.from_numpy(rng.standard_normal((2, 33)).astype(
+            np.float32)).to(cuda_device) if with_h0 else None)
+        h = lru.lru_scan(a, b, h0)
+        got = lru.lru_scan_bwd(a, h, dh, h0, want_dh0=True)
+        want = ref.lru_scan_bwd(a, h, dh, h0)
+        for g, w in zip(got, want, strict=True):
+            assert (g is None) == (w is None)
+            if w is not None:
+                assert _rel_err(g, w) <= 1e-5
+
+
+def test_raw_launchers_refuse_inputs_that_require_grad(cuda_device):
+    """The raw launchers' outputs carry no autograd history, so with grad
+    mode on they raise on an input that requires grad; ops goes through
+    the autograd Functions instead and gives the gradient."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lru_scan as lru
+
+    q = torch.randn((1, 2, 64, 16), device=cuda_device, requires_grad=True)
+    a = torch.rand((1, 8, 4), device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fa.flash_attention(q, q, q)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        lru.lru_scan(a, a)
+    with torch.no_grad():
+        fa.flash_attention(q, q, q)
+        lru.lru_scan(a, a)
+    ops.flash_attention(q, q, q).sum().backward()
+    ops.lru_scan(a, a).sum().backward()
+    assert q.grad is not None and a.grad is not None
+
+
+def test_mixers_get_gradients_through_the_kernels(cuda_device):
+    """attn_forward and rglru_forward on a card: q, k, v (and every
+    projection) get non-zero gradients through the kernels, equal to the
+    plain route's within bf16 rounding (3e-2 of the largest magnitude)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.nn import attention as attn
+    from repro_torch.nn import recurrent as rec
+
+    cfg = reduced(get_config("recurrentgemma-2b"), head_dim=64)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(1)
+    x = torch.randn((2, 32, cfg.d_model), device=cuda_device,
+                    generator=gen).to(torch.bfloat16)
+    pos = torch.arange(32, device=cuda_device, dtype=torch.int32)[None] \
+        .expand(2, 32)
+    for mixer, fwd in (
+            (attn.init_attn(cfg, gen, cuda_device, trainable=True),
+             lambda p, h, uk: attn.attn_forward(p, h, cfg, "local", pos,
+                                                use_kernel=uk)),
+            (rec.init_rglru_block(cfg, gen, cuda_device, trainable=True),
+             lambda p, h, uk: rec.rglru_forward(p, h, cfg, use_kernel=uk))):
+        grads = []
+        for use_kernel in (None, False):
+            mixer.zero_grad(set_to_none=True)
+            h = x.clone().requires_grad_()
+            fwd(mixer, h, use_kernel).float().square().sum().backward()
+            grads.append({"x": h.grad, **{n: p.grad for n, p in
+                                          mixer.named_parameters()}})
+        for name, g in grads[0].items():
+            assert g is not None and float(g.abs().max()) > 0, name
+            assert _rel_err(g, grads[1][name]) <= 3e-2, name
+
+
+def test_train_step_remat_policies_and_bf16_backward(cuda_device):
+    """On a card, through the kernels: remat "none" and "dots" give the
+    gradients "full" gives (the kernels are deterministic, so equal), and
+    bf16_backward_scope's gradients stay within bf16 rounding of them
+    (5e-2 of each gradient's largest magnitude); every launch count
+    follows launches_per_step's rule."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.nn.layers import bf16_backward_scope
+
+    cfg = reduced(get_config("recurrentgemma-2b"), num_layers=5,
+                  head_dim=64)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(2)
+    model = tf.init_params(cfg, gen, cuda_device, trainable=True)
+    rng = np.random.default_rng(3)
+    batch = {"inputs": rng.integers(0, cfg.vocab_size, (2, 32)),
+             "labels": rng.integers(0, cfg.vocab_size, (2, 32))}
+
+    def grads(c, bwd16=False):
+        model.zero_grad(set_to_none=True)
+        ops.reset_launch_counts()
+        with bf16_backward_scope(bwd16):
+            steps.loss_fn(model, c, batch)[0].backward()
+        counts = ops.launch_counts()
+        return {n: p.grad for n, p in model.named_parameters()}, counts
+
+    full, counts = grads(cfg)
+    # one unit (rglru, rglru, local) under remat, a tail of two rglru
+    assert (counts["lru_scan"], counts["lru_scan_bwd"],
+            counts["flash_attention"], counts["flash_attention_bwd"]) \
+        == (6, 4, 2, 1)
+    # "dots" reruns the unit in the backward too (it keeps only the
+    # products' outputs), "none" does not
+    for remat, fa_launches in (("none", 1), ("dots", 2)):
+        got, counts = grads(dataclasses.replace(cfg, remat=remat))
+        assert counts["flash_attention"] == fa_launches, remat
+        for n, g in full.items():
+            torch.testing.assert_close(got[n], g, rtol=0, atol=0, msg=n)
+    got, _ = grads(cfg, bwd16=True)
+    for n, g in full.items():
+        assert _rel_err(got[n], g) <= 5e-2, n

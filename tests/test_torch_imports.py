@@ -37,10 +37,12 @@ def test_port_has_the_slice_modules():
               "launch.steps", "launch.serve", "core.clock",
               "core.protocol_dataflow", "core.views", "graph.schema",
               "graph.reference", "graph.models", "graph.partition",
-              "launch.rpc"):
+              "launch.rpc", "configs.qwen2_5_14b", "train.optimizer",
+              "train.loss", "train.data", "train.compression",
+              "launch.train"):
         assert f"repro_torch.{m}" in mods, m
     for src in ("snapshot_resolve.cu", "segment_sum.cu", "lru_scan.cu",
-                "flash_attention.cu"):
+                "flash_attention.cu", "flash_attention_bwd.cu"):
         assert (SRC / "repro_torch" / "csrc" / src).is_file()
 
 
