@@ -7,9 +7,10 @@ Phases, each printed with its wall time; any failure exits non-zero
 before the result lines:
 
 1. Device line (``nvidia-smi`` name and power limit) and the build of the
-   CUDA kernels from ``src/repro_torch/csrc``; the tensor-core attention
-   kernel must build without spills (``-Xptxas -v``) and hold HGMMA
-   instructions (``cuobjdump -sass``).
+   CUDA kernels from ``src/repro_torch/csrc``; the tensor-core kernels
+   (the attention forward and the dK/dV and dQ kernels of its backward,
+   every head-dim instance) must build without spills (``-Xptxas -v``)
+   and hold HGMMA instructions (``cuobjdump -sass``).
 2. Every kernel against its plain PyTorch version on the card, at the
    serving slice's shapes: ``liveness_mask`` (16,000,000 stamps, sentinel
    and clamped query included) and ``snapshot_resolve`` (4,000,000 x 4),
@@ -83,12 +84,18 @@ before the result lines:
    (``kernels/ref.py``) on the card, each fed the same forward output:
    ``flash_attention_bwd`` at the training shape (2, 10, 1, 4096, 256)
    bf16 with window 2048, at (1, 8, 2, 1024, 128) float32, at reduced
-   qwen2.5's (2, 4, 2, 64, 16) bf16 and at phase 2's bf16 edge shapes;
-   ``lru_scan_bwd`` at (2, 4096, 2560) with and without ``h0``; relative
-   to each gradient's largest magnitude within ``BWD_RTOL_BF16``,
+   qwen2.5's (2, 4, 2, 64, 16) bf16 and at phase 2's bf16 edge shapes,
+   each on the route ``route(dtype, hd)`` names (``wgmma`` for bf16 at hd
+   64-256, bit-equal on a second call; ``simt`` otherwise);
+   ``lru_scan_bwd`` (a chunked scan over time) at (2, 4096, 2560) and at
+   S = 1, L - 1, L, L + 1, 4099 for its chunk length L, each with and
+   without ``h0``, bit-equal on a second call; relative to each
+   gradient's largest magnitude within ``BWD_RTOL_BF16``,
    ``BWD_RTOL_F32`` or ``LRU_BWD_RTOL``, with planted faults (the lse one
-   row off, the window one kv tile short, dh one step late) that must
-   exceed them; timed beside the plain versions and SDPA's backward.
+   row off, the window one kv tile short, the group walk one head short,
+   dh one step late, one chunk's carry dropped) that must exceed them;
+   timed beside the plain versions and SDPA's backward; the forward
+   ``lru_scan`` timed at the training shape.
    8b: one unit (3 layers) of ``recurrentgemma-2b`` at full width, the
    loss and every parameter's gradient through the kernels against the
    plain route on the card, within ``GRAD_RTOL``, with two planted
@@ -96,8 +103,8 @@ before the result lines:
    model (26 layers, 3.32 B float32 master weights, AdamW), 1 + 4 steps
    of 2 x 4096 Markov tokens (seed 0); launch counts reset just before
    and read just after: per step 34 ``lru_scan``, 18 ``lru_scan_bwd``, 16
-   ``flash_attention`` (all ``wgmma``) and 8 ``flash_attention_bwd`` (the
-   units' forward runs twice under remat); every loss finite, the first
+   ``flash_attention`` and 8 ``flash_attention_bwd`` (all on ``wgmma``;
+   the units' forward runs twice under remat); every loss finite, the first
    within ``FIRST_LOSS_TOL`` of ln(256000); step time, tokens per second,
    peak memory, then one more step taken apart (forward, loss chunks,
    backward, optimizer) with the device busy share. 8d: the driver's
@@ -121,8 +128,9 @@ row per kernel, at the shape its main path runs, with that run's
 launches: phase 3 for the graph kernels, phase 5 for the forward model
 kernels (``launches_training`` gives phase 8c's), phase 8c for the
 backward kernels; ``route`` is the language, ``kernel_route`` which of
-the wrapper's kernels ran); the last line is ``{"ok": true, "device":
-{...}}``. Imports nothing of JAX or ``repro``.
+the wrapper's kernels ran; the forward ``lru_scan`` at the training shape
+is in the checks line, with phase 8c's launches); the last line is
+``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
 
@@ -240,40 +248,54 @@ def bound(nbytes: float, ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_ms(torch, fn, kernel, reps: int = 10,
-              per_call: int = 1) -> float | None:
+def device_ms(torch, fn, kernel, reps: int = 10, per_call: int = 1,
+              split: dict | None = None) -> float | None:
     """The kernel's own device time per call in ms, from ``torch.profiler``
     over ``reps`` calls of ``fn`` after a warm-up. ``kernel`` is a name, or
     a tuple of names when a call launches several kernels, one of each
     (``per_call`` launches). Fails if anything else ran on the card in that
     window (every device event must be a kernel whose name holds one of the
     names) or if there were more launches than ``per_call`` per call: no
-    helper kernels, no copies. None when the profiler records no device
-    activity, or none for one of the call's kernels (then the row says
-    "not measured"). The profiler may drop launches at the window's start,
-    so each kernel's time is averaged over the launches of it that the
-    profiler saw, and a call's time is the sum of those averages."""
+    helper kernels, no copies. Each kernel's time is averaged over the
+    launches of it that the profiler saw, and a call's time is the sum of
+    those averages. A window in which the profiler recorded none of a
+    kernel of the call (it has dropped launches at a window's start, and
+    whole windows) is profiled again, up to three windows; None
+    (the row says "not measured") only when every window missed one, and
+    then the log names what each window saw. ``split``, when given, gets
+    each name's own time per launch."""
     from torch.profiler import ProfilerActivity, profile
 
     names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    seen = []
+    for _ in range(3):
+        fn()
         torch.cuda.synchronize()
-    on_card = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    if not on_card:
-        return None
-    others = [e.key for e in on_card if not any(n in e.key for n in names)]
-    check(not others, f"{names}: other device work in its window: {others}")
-    launches = sum(e.count for e in on_card)
-    check(launches <= reps * per_call and len(on_card) <= per_call,
-          f"{names}: {launches} launches of {len(on_card)} kernels in "
-          f"{reps} calls")
-    if len(on_card) < per_call:
-        return None   # a kernel of the call left no record in the window
-    return sum(e.self_device_time_total / e.count for e in on_card) / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        on_card = [e for e in prof.key_averages()
+                   if e.self_device_time_total > 0]
+        others = [e.key for e in on_card
+                  if not any(n in e.key for n in names)]
+        check(not others, f"{names}: other device work in its window: "
+                          f"{others}")
+        launches = sum(e.count for e in on_card)
+        check(launches <= reps * per_call and len(on_card) <= per_call,
+              f"{names}: {launches} launches of {len(on_card)} kernels in "
+              f"{reps} calls")
+        if len(on_card) == per_call:
+            each = {n: sum(e.self_device_time_total / e.count / 1e3
+                           for e in on_card if n in e.key) for n in names}
+            if split is not None:
+                split.update(each)
+            return sum(e.self_device_time_total / e.count
+                       for e in on_card) / 1e3
+        seen.append([(e.key[:50], e.count) for e in on_card])
+    log(f"device_ms {names}: a kernel of the call missing from every "
+        f"window: {seen}")
+    return None
 
 
 def host_ms(torch, fn, reps: int = 200) -> float:
@@ -306,24 +328,32 @@ def kernel_row(name, source, replaces, *, max_abs_err, ms, plain_ms,
 
 
 # --------------------------------------------------------------- phase 1
-def check_tensor_core_build() -> dict:
-    """The tensor-core attention kernel as built: ``-Xptxas -v`` must report
-    no spills for any of its instances, and ``cuobjdump -sass`` of the
+TENSOR_CORE_KERNELS = ("flash_attention_wgmma_kernel", "dkv_wgmma_kernel",
+                       "dq_wgmma_kernel")
+
+
+def check_tensor_core_build(kernels=TENSOR_CORE_KERNELS) -> dict:
+    """The tensor-core kernels as built (the attention forward and the two
+    kernels of its backward, every head-dim instance): ``-Xptxas -v`` must
+    report no spills for any instance, and ``cuobjdump -sass`` of the
     library must show HGMMA (wgmma) instructions in each."""
     import re
 
     from repro_torch.kernels import _lib
 
-    kernel = "flash_attention_wgmma_kernel"
+    def ours(fn):
+        return next((k for k in kernels if k in fn), None)
     log = _lib.build_log()
     ptxas, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = m.group(1) if kernel in m.group(1) else None
+            name = m.group(1) if ours(m.group(1)) else None
         elif name and ("spill" in line or "Used" in line):
             ptxas.setdefault(name, []).append(line.strip())
-    check(ptxas, f"no ptxas report for {kernel} in the build log")
+    for k in kernels:
+        check(any(ours(fn) == k for fn in ptxas),
+              f"no ptxas report for {k} in the build log")
     for fn, lines in ptxas.items():
         check(any("0 bytes spill stores, 0 bytes spill loads" in x
                   for x in lines), f"{fn} spills: {lines}")
@@ -335,11 +365,12 @@ def check_tensor_core_build() -> dict:
     for line in sass.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = m.group(1) if kernel in m.group(1) else None
+            name = m.group(1) if ours(m.group(1)) else None
         elif name and "HGMMA" in line:
             hgmma[name] = hgmma.get(name, 0) + 1
-    check(len(hgmma) == len(ptxas),
-          f"HGMMA in {len(hgmma)} of {len(ptxas)} {kernel} instances")
+    check(set(hgmma) == set(ptxas),
+          f"HGMMA in {len(hgmma)} of {len(ptxas)} instances of {kernels}: "
+          f"missing in {sorted(set(ptxas) - set(hgmma))}")
     return {"ptxas": {k[-60:]: v for k, v in ptxas.items()},
             "hgmma": {k[-60:]: v for k, v in hgmma.items()}}
 
@@ -919,9 +950,12 @@ class planted:
             args, kw = self.alter(args, kw)
             return self.real(*args, **kw)
         # a raw launcher counts on its module attribute, which is now
-        # ``faulty``: carry the count there and back
+        # ``faulty``: carry the count there and back (the per-route counts
+        # are one dict, shared)
         if hasattr(self.real, "launches"):
             faulty.launches = self.real.launches
+        if hasattr(self.real, "route_launches"):
+            faulty.route_launches = self.real.route_launches
         self.faulty = faulty
         setattr(self.ops, self.name, faulty)
 
@@ -1579,8 +1613,12 @@ def check_sharded_partitions(torch, sg, hub_k: int) -> dict:
 
 # ------------------------------------------------------------------- main
 # --------------------------------------------------------------- phase 8
-FLASH_BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
-FLASH_BWD_KERNELS = ("delta_kernel", "dkv_kernel", "dq_kernel")
+# per route: the backward's source and its three kernels (one launch each)
+FLASH_BWD_SOURCES = {
+    "wgmma": ("src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+              ("delta_sm90_kernel", "dkv_wgmma_kernel", "dq_wgmma_kernel")),
+    "simt": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+             ("delta_kernel", "dkv_kernel", "dq_kernel"))}
 
 
 def bwd_err(torch, got, want) -> float:
@@ -1593,14 +1631,19 @@ def bwd_err(torch, got, want) -> float:
 def check_flash_attention_bwd(torch) -> tuple[dict, list[dict]]:
     """flash_attention_bwd against its plain version (the full S x S
     softmax gradient in float32), fed the same forward output and lse, at
-    the training shape and at the forward's other shapes; each with a
-    planted fault (the lse one row off; with a window, the window one kv
-    tile short) that must exceed the limit. Timed beside the plain version
-    and SDPA's backward with the same boolean mask."""
+    the training shape and at the forward's other shapes. Each case must
+    launch the route that ``route(dtype, hd)`` names (bf16 at hd 64-256 the
+    tensor-core kernels, ``wgmma``; the rest ``simt``); a ``wgmma`` case
+    must give the same bits on a second call. Planted faults must exceed
+    the limit: the lse one row off; with a window, the window one kv tile
+    short; with a group of query heads, the last head of each group left
+    out of the walk (its dO zeroed, which is what a dK/dV walk one head
+    short and a dQ pass without that head give). Timed beside the plain
+    version and SDPA's backward with the same boolean mask."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
 
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + 5)
@@ -1617,11 +1660,16 @@ def check_flash_attention_bwd(torch) -> tuple[dict, list[dict]]:
                                                 (B, Hkv, S, hd),
                                                 (B, Hkv, S, hd),
                                                 (B, Hq, S, hd)))
+        which = fa.route(dtype, hd)
         out, lse = fa.flash_attention(q, k, v, window=window,
                                       return_lse=True)
+        ops.reset_launch_counts()
         got = fa.flash_attention_bwd(q, k, v, out, do, lse, window=window)
         want = ref.flash_attention_bwd(q, k, v, out, do, window=window)
         torch.cuda.synchronize()
+        check(ops.route_counts()["flash_attention_bwd"][which] == 1,
+              f"flash_attention_bwd {tuple(q.shape)} {dtype}: did not "
+              f"launch the {which} route ({ops.route_counts()})")
         check(all(x.dtype == dtype and x.shape == y.shape
                   for x, y in zip(got, (q, k, v), strict=True)),
               f"flash_attention_bwd {tuple(q.shape)}: dtypes or shapes")
@@ -1629,11 +1677,26 @@ def check_flash_attention_bwd(torch) -> tuple[dict, list[dict]]:
         check(err <= tol, f"flash_attention_bwd {tuple(q.shape)} {dtype} "
                           f"window={window}: {err} of the largest gradient "
                           f"over {tol}")
+        bit_equal = None
+        if which == "wgmma":
+            again = fa.flash_attention_bwd(q, k, v, out, do, lse,
+                                           window=window)
+            bit_equal = all(torch.equal(x, y)
+                            for x, y in zip(got, again, strict=True))
+            check(bit_equal, f"flash_attention_bwd {tuple(q.shape)}: two "
+                             "calls differ")
+            del again
         faults = {"lse one row off": fa.flash_attention_bwd(
             q, k, v, out, do, lse.roll(1, -1), window=window)}
         if window is not None and window > 64:
             faults["window one kv tile short"] = fa.flash_attention_bwd(
                 q, k, v, out, do, lse, window=window - 64)
+        if Hq > Hkv:
+            short = do.clone()
+            short[:, Hq // Hkv - 1::Hq // Hkv] = 0
+            faults["group walk one head short"] = fa.flash_attention_bwd(
+                q, k, v, out, short, lse, window=window)
+            del short
         planted_errs = {n: bwd_err(torch, f, want) for n, f in faults.items()}
         check(all(e > tol for e in planted_errs.values()),
               f"flash_attention_bwd planted faults not caught: "
@@ -1643,9 +1706,11 @@ def check_flash_attention_bwd(torch) -> tuple[dict, list[dict]]:
         def kernel():
             return fa.flash_attention_bwd(q, k, v, out, do, lse,
                                           window=window)
+        source, names = FLASH_BWD_SOURCES[which]
         ms = cuda_ms(torch, kernel, reps=5)
-        dev = device_ms(torch, kernel, FLASH_BWD_KERNELS, reps=3,
-                        per_call=3)
+        dev_split: dict = {}
+        dev = device_ms(torch, kernel, names, reps=3, per_call=3,
+                        split=dev_split)
         plain = cuda_ms(torch, lambda: ref.flash_attention_bwd(
             q, k, v, out, do, window=window), reps=3, warmup=1)
         del want
@@ -1670,70 +1735,136 @@ def check_flash_attention_bwd(torch) -> tuple[dict, list[dict]]:
         nbytes = esize * (4 * B * Hq * S * hd + 4 * B * Hkv * S * hd) \
             + 4 * B * Hq * S
         row = kernel_row(
-            "flash_attention_bwd", FLASH_BWD_SOURCE,
+            "flash_attention_bwd", source,
             "src/repro/kernels/flash_attention.py:78", max_abs_err=err,
             ms=ms, plain_ms=plain, nbytes=nbytes, ops=10 * hd * pairs,
             library_ms=library,
             shape=f"B={B},Hq={Hq},Hkv={Hkv},S={S},hd={hd},"
                   f"{str(dtype).split('.')[-1]},window={window}",
             ops_per_s=BF16_TC_OPS_PER_S if dtype == bf16 else FP32_OPS_PER_S,
-            dev_ms=dev)
+            kernel_route=which, dev_ms=dev)
+        row["device_ms_split"] = dev_split
         row["planted"] = planted_errs
         row["limit"] = tol
+        row["bit_equal"] = bit_equal
         rows.append(row)
         del q, k, v, do, out, lse
     return rows[0], rows[1:]
 
 
-def check_lru_scan_bwd(torch) -> dict:
-    """lru_scan_bwd against its plain version at the training shape, with
-    and without h0 (da, db and dh0 within LRU_BWD_RTOL of their largest
-    magnitudes); a planted fault (dh one step late) must exceed it."""
+LRU_BWD_KERNELS = ("lru_scan_bwd_carry_kernel", "lru_scan_bwd_kernel")
+
+
+def lru_scan_bwd_carry_dropped(torch, a, h, dh, h0, chunk: int):
+    """The backward's two launches as ``kernels.lru_scan.lru_scan_bwd``
+    makes them, with one chunk's carry (chunk 1, or 0 when there is one)
+    zeroed between them: a planted fault of the chunked design, which
+    loses that chunk's part of every carry to its left."""
+    from repro_torch.kernels import _lib
+
+    B, S, C = a.shape
+    n = -(-S // chunk)
+    carry = torch.empty((2, B, n, C), dtype=torch.float32, device=a.device)
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    dh0 = None if h0 is None else torch.empty_like(h0)
+    lib, stream = _lib.load(), _lib.stream_of(a)
+    _lib.check(lib.rt_lru_scan_bwd_carry(a.data_ptr(), dh.data_ptr(),
+                                         carry.data_ptr(), B, S, C, chunk,
+                                         stream), "carry pass")
+    carry[:, :, min(1, n - 1)] = 0
+    _lib.check(lib.rt_lru_scan_bwd(
+        a.data_ptr(), h.data_ptr(), None if h0 is None else h0.data_ptr(),
+        dh.data_ptr(), carry.data_ptr(), da.data_ptr(), db.data_ptr(),
+        None if dh0 is None else dh0.data_ptr(), B, S, C, chunk, stream),
+        "apply pass")
+    return da, db, dh0
+
+
+def check_lru_scan_bwd(torch) -> tuple[dict, dict]:
+    """lru_scan_bwd (the chunked scan over time) against its plain version
+    (the sequential walk) at the training shape and at S = 1, L - 1, L,
+    L + 1 and 4096 + 3 for the chunk length L, each with and without h0:
+    da, db and dh0 within LRU_BWD_RTOL of their largest magnitudes, and the
+    same bits on a second call. Planted faults must exceed the limit: dh
+    one step late (at the training shape), and one chunk's carry dropped
+    (wherever there are two chunks). Also times the forward lru_scan at
+    the training shape (its row in the checks line)."""
     from repro_torch.kernels import lru_scan as lru
     from repro_torch.kernels import ref
 
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + 6)
+    B, S_train, C = LRU_TRAIN_SHAPE
+    L = lru.BWD_CHUNK
     errs, planted_errs = {}, {}
-    for with_h0 in (False, True):
-        a = 0.5 + 0.499 * torch.rand(LRU_TRAIN_SHAPE, generator=g,
-                                     device="cuda")
-        b = torch.randn(LRU_TRAIN_SHAPE, generator=g, device="cuda")
-        h0 = (torch.randn((LRU_TRAIN_SHAPE[0], LRU_TRAIN_SHAPE[2]),
-                          generator=g, device="cuda") if with_h0 else None)
-        h = lru.lru_scan(a, b, h0)
-        dh = torch.randn(LRU_TRAIN_SHAPE, generator=g, device="cuda")
-        got = lru.lru_scan_bwd(a, h, dh, h0, want_dh0=True)
-        want = ref.lru_scan_bwd(a, h, dh, h0)
-        torch.cuda.synchronize()
-        errs[with_h0] = bwd_err(torch, got, want)
-        check(errs[with_h0] <= LRU_BWD_RTOL,
-              f"lru_scan_bwd h0={with_h0}: {errs[with_h0]} of the largest "
-              f"gradient over {LRU_BWD_RTOL}")
-        planted_errs[with_h0] = bwd_err(
-            torch, lru.lru_scan_bwd(a, h, dh.roll(1, 1), h0,
-                                    want_dh0=True), want)
-        check(planted_errs[with_h0] > LRU_BWD_RTOL,
-              f"lru_scan_bwd planted fault not caught: {planted_errs}")
-        if not with_h0:
-            ms = cuda_ms(torch, lambda: lru.lru_scan_bwd(a, h, dh))
-            dev = device_ms(torch, lambda: lru.lru_scan_bwd(a, h, dh),
-                            "lru_scan_bwd")
-            plain = cuda_ms(torch, lambda: ref.lru_scan_bwd(a, h, dh),
-                            reps=3, warmup=1)
-        del a, b, h0, h, dh, got, want
-    log(f"phase 8a lru_scan_bwd max rel err {errs} (limit {LRU_BWD_RTOL}), "
-        f"planted dh one step late {planted_errs}")
-    B, S, C = LRU_TRAIN_SHAPE
-    n = B * S * C
+    for S in (S_train, 1, L - 1, L, L + 1, 4096 + 3):
+        for with_h0 in (False, True):
+            shape = (B, S, C)
+            a = 0.5 + 0.499 * torch.rand(shape, generator=g, device="cuda")
+            b = torch.randn(shape, generator=g, device="cuda")
+            h0 = (torch.randn((B, C), generator=g, device="cuda")
+                  if with_h0 else None)
+            h = lru.lru_scan(a, b, h0)
+            dh = torch.randn(shape, generator=g, device="cuda")
+            got = lru.lru_scan_bwd(a, h, dh, h0, want_dh0=True)
+            want = ref.lru_scan_bwd(a, h, dh, h0)
+            again = lru.lru_scan_bwd(a, h, dh, h0, want_dh0=True)
+            torch.cuda.synchronize()
+            key = f"S={S},h0={with_h0}"
+            errs[key] = bwd_err(torch, got, want)
+            check(errs[key] <= LRU_BWD_RTOL,
+                  f"lru_scan_bwd {key}: {errs[key]} of the largest "
+                  f"gradient over {LRU_BWD_RTOL}")
+            check(all(x is None or torch.equal(x, y)
+                      for x, y in zip(got, again, strict=True)),
+                  f"lru_scan_bwd {key}: two calls differ")
+            faults = {}
+            if S == S_train:
+                faults["dh one step late"] = lru.lru_scan_bwd(
+                    a, h, dh.roll(1, 1), h0, want_dh0=True)
+            if S > L:
+                faults["one chunk's carry dropped"] = \
+                    lru_scan_bwd_carry_dropped(torch, a, h, dh, h0, L)
+            for name, bad in faults.items():
+                planted_errs[f"{key} {name}"] = bwd_err(torch, bad, want)
+            if S == S_train and not with_h0:
+                ms = cuda_ms(torch, lambda: lru.lru_scan_bwd(a, h, dh))
+                dev_split: dict = {}
+                dev = device_ms(torch, lambda: lru.lru_scan_bwd(a, h, dh),
+                                LRU_BWD_KERNELS, per_call=2, split=dev_split)
+                plain = cuda_ms(torch, lambda: ref.lru_scan_bwd(a, h, dh),
+                                reps=3, warmup=1)
+                fwd = {"ms": cuda_ms(torch, lambda: lru.lru_scan(a, b)),
+                       "dev": device_ms(torch, lambda: lru.lru_scan(a, b),
+                                        "lru_scan_kernel"),
+                       "plain": cuda_ms(torch, lambda: ref.lru_scan(a, b),
+                                        reps=3, warmup=1),
+                       "err": float((lru.lru_scan(a, b)
+                                     - ref.lru_scan(a, b)).abs().max())}
+            del a, b, h0, h, dh, got, want, again, faults
+    missed = {k: e for k, e in planted_errs.items() if e <= LRU_BWD_RTOL}
+    check(not missed, f"lru_scan_bwd planted faults not caught: {missed}")
+    log(f"phase 8a lru_scan_bwd (chunk {L}) max rel err {errs} (limit "
+        f"{LRU_BWD_RTOL}), bit-equal on a second call; planted "
+        f"{planted_errs}")
+    n = B * S_train * C
+    shape = f"B={B},S={S_train},C={C},float32"
     row = kernel_row(
         "lru_scan_bwd", "src/repro_torch/csrc/lru_scan.cu",
-        "src/repro/kernels/lru_scan.py:52", max_abs_err=errs[False], ms=ms,
-        plain_ms=plain, nbytes=20 * n, ops=3 * n, library_ms=None,
-        shape=f"B={B},S={S},C={C},float32", dev_ms=dev)
-    row["planted"] = planted_errs[False]
+        "src/repro/kernels/lru_scan.py:52",
+        max_abs_err=errs[f"S={S_train},h0=False"], ms=ms, plain_ms=plain,
+        nbytes=20 * n, ops=3 * n, library_ms=None, shape=shape, dev_ms=dev)
+    row["device_ms_split"] = dev_split
+    row["planted"] = {k: e for k, e in planted_errs.items()
+                      if k.startswith(f"S={S_train},")}
     row["limit"] = LRU_BWD_RTOL
-    return row
+    row["bit_equal"] = True
+    fwd_row = kernel_row(
+        "lru_scan", "src/repro_torch/csrc/lru_scan.cu",
+        "src/repro/kernels/lru_scan.py:52", max_abs_err=fwd["err"],
+        ms=fwd["ms"], plain_ms=fwd["plain"], nbytes=12 * n, ops=2 * n,
+        library_ms=None, shape=shape + " (training)", dev_ms=fwd["dev"])
+    return row, fwd_row
 
 
 def training_batch(cfg, index: int, batch: int = TRAIN_BATCH,
@@ -1859,8 +1990,11 @@ def train_model(torch, cfg, device: str = "cuda", batch: int = TRAIN_BATCH,
         check(counts[name] == n,
               f"training launched {name} {counts[name]} times, expected {n} "
               f"({steps_n} steps)")
+    bwd_routes = ops.route_counts()["flash_attention_bwd"]
     check(routes["wgmma"] == want["flash_attention"],
           f"training flash_attention routes {routes}")
+    check(bwd_routes["wgmma"] == want["flash_attention_bwd"],
+          f"training flash_attention_bwd routes {bwd_routes}")
     vals = [losses[i] for i in range(steps_n)]
     check(all(math.isfinite(x) for x in vals), f"losses {vals}")
     check(abs(vals[0] - math.log(cfg.vocab_size)) < FIRST_LOSS_TOL,
@@ -1869,6 +2003,7 @@ def train_model(torch, cfg, device: str = "cuda", batch: int = TRAIN_BATCH,
     return {"cfg": cfg, "state": state, "losses": vals, "times": times,
             "step_s": step_s, "tokens_per_s": batch * seq / step_s,
             "wall_s": wall, "counts": counts, "routes": routes,
+            "bwd_routes": bwd_routes,
             "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
                          if on_card else None),
             "params": sum(p.numel() for p in state["params"].parameters())}
@@ -2012,7 +2147,8 @@ def main() -> int:
     _lib.load()
     log(f"phase 1 build: {time.perf_counter() - t:.3f} s "
         f"(nvcc {_lib.build_seconds})")
-    log(f"phase 1 tensor-core kernel: {json.dumps(check_tensor_core_build())}")
+    log(f"phase 1 tensor-core kernels: "
+        f"{json.dumps(check_tensor_core_build())}")
 
     t = time.perf_counter()
     # rows: each kernel at the shape its main path runs; extra: the other
@@ -2157,13 +2293,14 @@ def main() -> int:
 
     t = time.perf_counter()
     fa_bwd_row, fa_bwd_extra = check_flash_attention_bwd(torch)
-    lru_bwd_row = check_lru_scan_bwd(torch)
+    lru_bwd_row, lru_train_row = check_lru_scan_bwd(torch)
     extra.extend(fa_bwd_extra)
-    log("phase 8a flash_attention_bwd vs plain (max rel err, limit, "
-        "planted): " + "; ".join(
-            f"{r['shape']} {r['max_abs_err']:.3e} {r['limit']} "
-            f"{json.dumps(r['planted'])}" for r in [fa_bwd_row]
-            + fa_bwd_extra))
+    extra.append(lru_train_row)
+    log("phase 8a flash_attention_bwd vs plain (route, max rel err, limit, "
+        "bit-equal, planted): " + "; ".join(
+            f"{r['shape']} {r['kernel_route']} {r['max_abs_err']:.3e} "
+            f"{r['limit']} {r['bit_equal']} {json.dumps(r['planted'])}"
+            for r in [fa_bwd_row] + fa_bwd_extra))
     log(f"phase 8a backward kernels vs plain: {time.perf_counter() - t:.3f}"
         " s")
     t = time.perf_counter()
@@ -2192,7 +2329,8 @@ def main() -> int:
         f"{train_run['tokens_per_s']:.1f} tokens/s ({tokens_step} per step);"
         f" peak device memory {train_run['peak_gib']:.3f} GiB; launches "
         f"{train_counts} (per step {launches_per_step(train_cfg)}), "
-        f"flash_attention routes {train_run['routes']}; run "
+        f"flash_attention routes {train_run['routes']}, "
+        f"flash_attention_bwd routes {train_run['bwd_routes']}; run "
         f"{train_run['wall_s']:.3f} s")
     split = train_time_split(torch, train_run)
     log(f"phase 8c time split of one more step: {json.dumps(split)}")
@@ -2202,6 +2340,7 @@ def main() -> int:
     log(f"phase 8d fault path on reduced {MODEL_ARCH}: {json.dumps(fault)}; "
         f"phase 8 {time.perf_counter() - t:.3f} s")
     rows.extend([lru_bwd_row, fa_bwd_row])
+    lru_train_row["launches_training"] = train_counts["lru_scan"]
 
     for row in rows:
         name = row["name"]

@@ -1,6 +1,9 @@
 // Backward of the blocked attention (causal, grouped query heads, optional
-// sliding window) for Hopper (sm_90a): the gradient of flash_attention.cu
-// and flash_attention_sm90.cu with respect to q, k and v.
+// sliding window) on the CUDA cores for Hopper (sm_90a): the wrapper's
+// `simt` backward route (kernels/flash_attention.py:route), which takes
+// float32 at every head dim (16-256) and bf16 at head dims 16 and 32; bf16
+// at head dims 64, 128 and 256 takes the tensor-core backward in
+// flash_attention_bwd_sm90.cu (`wgmma`), as the forward does.
 //
 // The TPU has no counterpart: the JAX package differentiates its plain
 // attention path with jax.grad (src/repro/launch/steps.py:26-35), and its
@@ -39,12 +42,10 @@
 //
 // What bounds it on an H100: operations. Per (query, key) pair inside the
 // mask the gradient needs 5 products of length hd (S, dO V^T, dV, dK, dQ),
-// 10 hd operations; at the training shape (B = 2, Hq = 10, Hkv = 1,
-// S = 4096, hd = 256, window 2048, bf16) that is 322 GFLOP, 0.33 ms at the
-// 989 TFLOP/s bf16 tensor-core rate. This first kernel runs on the CUDA
-// cores in float32 (67 TFLOP/s) and recomputes S and dO V^T in both
-// passes (14 hd per pair), so it sits far above that bound; tensor cores
-// (wgmma) are the later fix.
+// 10 hd operations, at the float32 CUDA-core rate (67 TFLOP/s) on this
+// route: at (B = 1, Hq = 8, Hkv = 2, S = 1024, hd = 128) float32 that is
+// 5.4 GFLOP, 0.08 ms. This kernel recomputes S and dO V^T in both passes
+// (14 hd per pair) and stages its tiles in shared memory as float32.
 //
 // Design of each tile step, 256 threads as 16 x 16 (ty, tx): thread
 // (ty, tx) owns query rows ty + 16 a (a < 2) and keys tx + 16 c (c < 4) of

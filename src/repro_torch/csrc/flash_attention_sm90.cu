@@ -101,19 +101,6 @@ struct Smem {
   static constexpr size_t kBytes = kBar + 8 * 8 + 1024;  // + 1024-B alignment
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
-                                         uint64_t desc_v) {
-  if constexpr (HD == 64) wgmma_m64n64k16_rs(o, a, desc_v);
-  else if constexpr (HD == 128) wgmma_m64n128k16_rs(o, a, desc_v);
-  else wgmma_m64n256k16_rs(o, a, desc_v);
-}
-
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -275,7 +262,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         for (int kk = 0; kk < kBKV / 16; ++kk) {
           const uint64_t dv =
               desc_sw128(v_tile + kk * 16 * 128, kBKV * 128, 1024);
-          wgmma_pv<HD>(o, pa + 4 * kk, dv);
+          wgmma_m64k16_rs<HD>(o, pa + 4 * kk, dv);
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -310,45 +297,6 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
             __floats2bfloat162_rn(o[i] / den, o[i + 1] / den);
     }
   }
-}
-
-// cuTensorMapEncodeTiled, fetched from libcuda once
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &found);
-#endif
-    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) p = nullptr;
-    return reinterpret_cast<EncodeTiledFn>(p);
-  }();
-  return fn;
-}
-
-// 3-d map over (hd, S, heads) of a contiguous (heads, S, hd) bf16 tensor;
-// boxes of 64 columns x `rows` rows x 1 head, 128-byte swizzle
-bool encode_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int hd,
-                int S, int heads, int rows) {
-  cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)S, (cuuint64_t)heads};
-  cuuint64_t strides[2] = {(cuuint64_t)hd * 2, (cuuint64_t)S * hd * 2};
-  cuuint32_t box[3] = {(cuuint32_t)kBox, (cuuint32_t)rows, 1};
-  cuuint32_t elem[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int HD>

@@ -1,9 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
-// shared-memory addresses, mbarriers, TMA tile loads, wgmma shared-memory
-// descriptors, wgmma issue/commit/wait and register reallocation. Each is
-// one PTX instruction (or a short loop around one), written as inline
-// assembly; the instruction forms are those of the PTX ISA for sm_90a.
+// shared-memory addresses, mbarriers, named barriers, TMA tile loads, wgmma
+// shared-memory descriptors, wgmma issue/commit/wait and register
+// reallocation. Each is one PTX instruction (or a short loop around one),
+// written as inline assembly; the instruction forms are those of the PTX
+// ISA for sm_90a. On the host: the tensor maps the TMA loads read.
 #pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
 #include <cstdint>
 
@@ -52,6 +57,17 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       "}\n" ::"r"(bar),
       "r"(parity)
       : "memory");
+}
+
+// ---------------------------------------------------------- named barriers
+// Barrier `id` (1-15; 0 is __syncthreads) completes when `threads` threads
+// have arrived; sync waits for that, arrive does not. A pair orders the
+// shared-memory writes before the arrive before the reads after the sync.
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // --------------------------------------------------------------------- TMA
@@ -182,6 +198,64 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float* d, const uint32_t* a,
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D (64 x N, float32) += A (64 x 16 bf16, registers) * B (16 x N, shared,
+// MN-major) for N = 64, 128 or 256
+template <int N>
+__device__ __forceinline__ void wgmma_m64k16_rs(float* d, const uint32_t* a,
+                                                uint64_t desc_b) {
+  if constexpr (N == 64) wgmma_m64n64k16_rs(d, a, desc_b);
+  else if constexpr (N == 128) wgmma_m64n128k16_rs(d, a, desc_b);
+  else wgmma_m64n256k16_rs(d, a, desc_b);
+}
+
+// two floats as a bf16 pair, the low one first: one 32-bit register of a
+// wgmma A fragment
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ------------------------------------------------------- host: tensor maps
+// cuTensorMapEncodeTiled, fetched from libcuda once, so the library needs
+// no -lcuda
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) p = nullptr;
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// 3-d map over (hd, S, heads) of a contiguous (heads, S, hd) bf16 tensor;
+// boxes of 64 columns (128 B) x `rows` rows x 1 head, 128-byte swizzle
+inline bool encode_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr,
+                       int hd, int S, int heads, int rows) {
+  cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)S, (cuuint64_t)heads};
+  cuuint64_t strides[2] = {(cuuint64_t)hd * 2, (cuuint64_t)S * hd * 2};
+  cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

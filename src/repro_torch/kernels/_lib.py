@@ -29,7 +29,7 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("snapshot_resolve.cu", "segment_sum.cu", "lru_scan.cu",
            "flash_attention.cu", "flash_attention_sm90.cu",
-           "flash_attention_bwd.cu")
+           "flash_attention_bwd.cu", "flash_attention_bwd_sm90.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -55,14 +55,20 @@ _SIGNATURES = {
                                       ctypes.c_int, _P]),
     "rt_lru_scan": (ctypes.c_int, [_P, _P, _P, _P, ctypes.c_longlong,
                                    ctypes.c_longlong, ctypes.c_longlong, _P]),
-    "rt_lru_scan_bwd": (ctypes.c_int, [_P] * 7 + [ctypes.c_longlong] * 3
-                        + [_P]),
+    "rt_lru_scan_bwd_carry": (ctypes.c_int, [_P] * 3
+                              + [ctypes.c_longlong] * 3
+                              + [ctypes.c_int, _P]),
+    "rt_lru_scan_bwd": (ctypes.c_int, [_P] * 8 + [ctypes.c_longlong] * 3
+                        + [ctypes.c_int, _P]),
     "rt_flash_attention": (ctypes.c_int, [_P] * 5 + [ctypes.c_int] * 8
                            + [ctypes.c_float, _P]),
     "rt_flash_attention_sm90": (ctypes.c_int, [_P] * 5 + [ctypes.c_int] * 7
                                 + [ctypes.c_float, _P]),
     "rt_flash_attention_bwd": (ctypes.c_int, [_P] * 10 + [ctypes.c_int] * 8
                                + [ctypes.c_float, _P]),
+    "rt_flash_attention_bwd_sm90": (ctypes.c_int, [_P] * 10
+                                    + [ctypes.c_int] * 7
+                                    + [ctypes.c_float, _P]),
 }
 
 

@@ -2,30 +2,30 @@
 sliding window), the attention of every local-attention layer, and its
 gradient.
 
-Two kernels, two routes, chosen from (dtype, head dim) by :func:`route`
-before anything is launched:
+Two routes, chosen from (dtype, head dim) by :func:`route` before
+anything is launched, each with a forward and a backward kernel:
 
-* ``wgmma`` (``csrc/flash_attention_sm90.cu``): bf16 with hd in 64, 128,
-  256. Tensor-core products (wgmma) fed by TMA, one block per (batch x head,
-  128-row q tile) with a producer and two consumer warpgroups.
-* ``simt`` (``csrc/flash_attention.cu``): float32, and bf16 with hd 16 or
-  32. CUDA-core products in float32, one block per 64-row q tile.
+* ``wgmma``: bf16 with hd in 64, 128, 256. Tensor-core products (wgmma)
+  fed by TMA, with a producer and two consumer warpgroups per block. The
+  forward is ``csrc/flash_attention_sm90.cu`` (one block per (batch x head,
+  128-row q tile)); the backward ``csrc/flash_attention_bwd_sm90.cu`` (a
+  dK/dV kernel per 64-row kv tile walking the group's query heads, a dQ
+  kernel per 128-row q tile).
+* ``simt``: float32 (any head dim), and bf16 with hd 16 or 32. CUDA-core
+  products in float32: the forward ``csrc/flash_attention.cu`` (one block
+  per 64-row q tile), the backward ``csrc/flash_attention_bwd.cu``.
 
-Each file's header says what bounds it on an H100. The plain version is in
-:mod:`repro_torch.kernels.ref`.
-
-The gradient is a third file, ``csrc/flash_attention_bwd.cu`` (CUDA
-cores, float32 accumulation, any dtype and head dim above), fed the
-forward's per-row log-sum-exp.
+The backward of either route is fed the forward's per-row log-sum-exp.
+Each file's header says what bounds it on an H100. The plain versions are
+in :mod:`repro_torch.kernels.ref`.
 
 :func:`flash_attention` and :func:`flash_attention_bwd` are the raw
 launchers. Each takes CUDA tensors only, checks dtype, shape, device,
 contiguity and (on the ``wgmma`` route) 16-byte alignment, allocates its
 outputs, launches on PyTorch's current stream and raises on a launch
-error. The forward never falls back from one route to the other. Per call
-that launches, the forward adds one to ``flash_attention.launches`` and to
-its route's entry in ``flash_attention.route_launches``, the backward one
-to ``flash_attention_bwd.launches``. Their outputs carry no autograd
+error. Neither falls back from one route to the other. Per call that
+launches, each adds one to its ``launches`` and to its route's entry in
+its ``route_launches``. Their outputs carry no autograd
 history, so :func:`flash_attention` refuses an input that requires grad
 while grad mode is on; :class:`FlashAttentionFn` is the differentiable
 entry (``kernels.ops.flash_attention`` on a card).
@@ -145,23 +145,34 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     if tuple(lse.shape) != (B, Hq, S) or lse.device != q.device:
         raise ValueError(f"lse must be ({B}, {Hq}, {S}) on q's device, got "
                          f"{tuple(lse.shape)}")
+    which = route(q.dtype, hd)
     args = _mask_args(S, hd, causal, window, q)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel():
         delta = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+        bf16 = (q, k, v, out, dout, dq, dk, dv)
+        ptrs = (*(t.data_ptr() for t in bf16[:5]), lse.data_ptr(),
+                delta.data_ptr(), *(t.data_ptr() for t in bf16[5:]))
         lib = _lib.load()
-        with _lib.on_device(q):
-            code = lib.rt_flash_attention_bwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                _DTYPES[q.dtype], B, Hq, Hkv, *args)
-        _lib.check(code, "flash_attention_bwd")
+        if which == "wgmma":
+            if any(t.data_ptr() % 16 for t in bf16):
+                raise ValueError("flash_attention_bwd: the wgmma route needs "
+                                 "16-byte aligned q, k, v, out and dout")
+            with _lib.on_device(q):
+                code = lib.rt_flash_attention_bwd_sm90(*ptrs, B, Hq, Hkv,
+                                                       *args)
+        else:
+            with _lib.on_device(q):
+                code = lib.rt_flash_attention_bwd(
+                    *ptrs, _DTYPES[q.dtype], B, Hq, Hkv, *args)
+        _lib.check(code, f"flash_attention_bwd ({which})")
         flash_attention_bwd.launches += 1
+        flash_attention_bwd.route_launches[which] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 class FlashAttentionFn(torch.autograd.Function):

@@ -1,10 +1,12 @@
 """CUDA wrapper: diagonal linear recurrence ``h_t = a_t * h_{t-1} + b_t``
 (the RG-LRU inner loop of every recurrent layer), and its gradient.
 
-The kernels are in ``csrc/lru_scan.cu``: one thread per (batch, channel)
-walks time, forwards for the scan and backwards for its gradient (the
-file's header says what bounds each on an H100). The plain versions are in
-:mod:`repro_torch.kernels.ref`.
+The kernels are in ``csrc/lru_scan.cu`` (its header says what bounds each
+on an H100): the scan is one thread per (batch, channel) walking time; its
+gradient is a chunked scan over time in two launches, one thread per
+(batch, chunk of ``BWD_CHUNK`` steps, channel), with a (2, B, n_chunks, C)
+float32 scratch of per-chunk carries that :func:`lru_scan_bwd` allocates.
+The plain versions are in :mod:`repro_torch.kernels.ref`.
 
 :func:`lru_scan` and :func:`lru_scan_bwd` are the raw launchers. Each takes
 CUDA tensors only, checks device, dtype, shape and contiguity, allocates
@@ -20,6 +22,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _lib
+
+# time steps per chunk of the backward's chunked scan; passed to the kernel
+BWD_CHUNK = 64
 
 
 def _check_h0(h0, B: int, C: int, like: torch.Tensor, name: str) -> None:
@@ -76,14 +81,22 @@ def lru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
     dh0 = (torch.empty((B, C), dtype=torch.float32, device=a.device)
            if want_dh0 and h0 is not None else None)
     if a.numel():
+        n_chunks = -(-S // BWD_CHUNK)
+        carry = torch.empty((2, B, n_chunks, C), dtype=torch.float32,
+                            device=a.device)
         lib = _lib.load()
+        stream = _lib.stream_of(a)
         with _lib.on_device(a):
-            code = lib.rt_lru_scan_bwd(
-                a.data_ptr(), h.data_ptr(),
-                None if h0 is None else h0.data_ptr(), dh.data_ptr(),
-                da.data_ptr(), db.data_ptr(),
-                None if dh0 is None else dh0.data_ptr(), B, S, C,
-                _lib.stream_of(a))
+            code = lib.rt_lru_scan_bwd_carry(
+                a.data_ptr(), dh.data_ptr(), carry.data_ptr(), B, S, C,
+                BWD_CHUNK, stream)
+            if not code:
+                code = lib.rt_lru_scan_bwd(
+                    a.data_ptr(), h.data_ptr(),
+                    None if h0 is None else h0.data_ptr(), dh.data_ptr(),
+                    carry.data_ptr(), da.data_ptr(), db.data_ptr(),
+                    None if dh0 is None else dh0.data_ptr(), B, S, C,
+                    BWD_CHUNK, stream)
         _lib.check(code, "lru_scan_bwd")
         lru_scan_bwd.launches += 1
     elif dh0 is not None:

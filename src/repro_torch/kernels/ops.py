@@ -85,13 +85,20 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 
+# the wrappers with more than one kernel, each carrying ``route_launches``
+_ROUTED = {"flash_attention": _fa.flash_attention,
+           "flash_attention_bwd": _fa.flash_attention_bwd}
+
+
 def route_counts() -> dict[str, dict[str, int]]:
     """Launches per route of the wrappers that have more than one kernel
-    (``flash_attention``: ``wgmma`` and ``simt``) since the last reset."""
-    return {"flash_attention": dict(_fa.flash_attention.route_launches)}
+    (``flash_attention`` and ``flash_attention_bwd``: ``wgmma`` and
+    ``simt``) since the last reset."""
+    return {name: dict(fn.route_launches) for name, fn in _ROUTED.items()}
 
 
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS.values():
         fn.launches = 0
-    _fa.flash_attention.route_launches = dict.fromkeys(_fa.ROUTES, 0)
+    for fn in _ROUTED.values():
+        fn.route_launches = dict.fromkeys(_fa.ROUTES, 0)

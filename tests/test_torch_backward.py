@@ -133,6 +133,91 @@ def test_lru_scan_bwd_matches_autograd_and_jax(B, S, C, with_h0):
         assert dh0 is None
 
 
+def _lru_scan_bwd_chunked(a: torch.Tensor, h: torch.Tensor,
+                         dh: torch.Tensor, h0: torch.Tensor | None = None, *,
+                         chunk: int):
+    """``ref.lru_scan_bwd`` computed as the CUDA kernel computes it
+    (``csrc/lru_scan.cu``): time in chunks of ``chunk`` steps, all chunks
+    at once. Pass 1 walks each chunk backwards with no carry in, giving
+    G_k = a_{t0} g_{t0} at its first step t0 and A_k, the product of a over
+    it; the carry into chunk k is c_k = G_{k+1} + A_{k+1} c_{k+1} (0 for
+    the last); pass 2 walks each chunk again from g = dh + c_k at its last
+    step. The last chunk is padded with a = 1 and dh = 0, which adds
+    nothing. Returns (da, db, dh0) as ``ref.lru_scan_bwd``."""
+    B, S, C = a.shape
+    n = -(-S // chunk)
+    pad = n * chunk - S
+
+    def chunks(x, fill):
+        x = torch.cat([x, x.new_full((B, pad, C), fill)], dim=1)
+        return x.reshape(B, n, chunk, C)
+    zeros = torch.zeros((B, 1, C), dtype=torch.float32, device=a.device)
+    prev = torch.cat([zeros if h0 is None else h0[:, None].float(),
+                      h[:, :-1]], dim=1)[:, :S]
+    ac, gc, hc = chunks(a, 1.0), chunks(dh, 0.0), chunks(prev, 0.0)
+    g = torch.zeros((B, n, C), dtype=torch.float32, device=a.device)
+    a_next, prod = torch.zeros_like(g), torch.ones_like(g)
+    for u in range(chunk - 1, -1, -1):
+        g = a_next * g + gc[:, :, u]
+        a_next = ac[:, :, u]
+        prod = prod * a_next
+    G, A = a_next * g, prod
+    carry = torch.zeros_like(g)
+    for k in range(n - 2, -1, -1):
+        carry[:, k] = G[:, k + 1] + A[:, k + 1] * carry[:, k + 1]
+    da, db = torch.empty_like(ac), torch.empty_like(ac)
+    g, a_next = carry, torch.ones_like(g)
+    for u in range(chunk - 1, -1, -1):
+        g = a_next * g + gc[:, :, u]
+        db[:, :, u] = g
+        da[:, :, u] = g * hc[:, :, u]
+        a_next = ac[:, :, u]
+    da = da.reshape(B, n * chunk, C)[:, :S]
+    db = db.reshape(B, n * chunk, C)[:, :S]
+    if h0 is None:
+        return da, db, None
+    return da, db, (a[:, 0] * db[:, 0] if S else torch.zeros_like(h0))
+
+
+L = cuda_lru.BWD_CHUNK   # the chunk length the CUDA backward is given
+
+
+@pytest.mark.parametrize("S", [1, L - 1, L, L + 1, 3 * L + 5])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_lru_scan_bwd_chunked_matches_sequential_and_jax(S, with_h0):
+    """The CUDA backward's decomposition (per-chunk carries folded from the
+    right, then each chunk walked again), written out in plain torch with
+    the wrapper's chunk length: equal to the sequential plain backward and
+    to jax.grad of the reference's scan within 1e-6 of each gradient's
+    largest magnitude, at S below, at, one past and several chunks past
+    the chunk length."""
+    rng = np.random.default_rng(S)
+    B, C = 2, 6
+    a = (0.5 + 0.499 * rng.random((B, S, C))).astype(np.float32)
+    b = rng.standard_normal((B, S, C)).astype(np.float32)
+    h0 = rng.standard_normal((B, C)).astype(np.float32) if with_h0 else None
+    dh = rng.standard_normal((B, S, C)).astype(np.float32)
+    ta, tdh = torch.from_numpy(a), torch.from_numpy(dh)
+    th0 = None if h0 is None else torch.from_numpy(h0)
+    h = ref.lru_scan(ta, torch.from_numpy(b), th0)
+    got = _lru_scan_bwd_chunked(ta, h, tdh, th0, chunk=L)
+    seq = ref.lru_scan_bwd(ta, h, tdh, th0)
+
+    def jfn(a, b, h0):
+        if h0 is not None:
+            b = b.at[:, 0].add(a[:, 0] * h0)
+        return jnp.sum(jref.lru_scan(a, b) * dh)
+    jargs = (jnp.asarray(a), jnp.asarray(b),
+             None if h0 is None else jnp.asarray(h0))
+    jgrads = jax.grad(jfn, argnums=(0, 1, 2) if with_h0 else (0, 1))(*jargs)
+    for i, name in enumerate(("da", "db", "dh0")):
+        if not with_h0 and name == "dh0":
+            assert got[i] is None and seq[i] is None
+            continue
+        _rel_close(got[i], seq[i].numpy(), f"{name} vs sequential", 1e-6)
+        _rel_close(got[i], jgrads[i], f"{name} vs jax.grad", 1e-6)
+
+
 # ------------------------------------------------- the autograd Functions
 @pytest.fixture
 def plain_launchers(monkeypatch):

@@ -406,3 +406,58 @@ def test_train_step_remat_policies_and_bf16_backward(cuda_device):
     got, _ = grads(cfg, bwd16=True)
     for n, g in full.items():
         assert _rel_err(got[n], g) <= 5e-2, n
+
+
+def test_wgmma_backward_matches_plain_and_is_deterministic(cuda_device):
+    """The tensor-core backward (bf16 at hd 64-256) at chip_smoke.py's bf16
+    edge shapes: ragged S with a window off the tile grid and GQA 4, and S
+    one row past a tile. It launches the wgmma route, stays within 1e-2 of
+    each gradient's largest magnitude, and a second call gives the same
+    bits (no atomics, sums in a fixed order)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(7)
+    for B, Hq, Hkv, S, hd, window in ((1, 8, 2, 1000, 128, 300),
+                                      (2, 4, 4, 4097, 64, None)):
+        q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(
+            np.float32)).to(cuda_device, torch.bfloat16) for s in (
+            (B, Hq, S, hd), (B, Hkv, S, hd), (B, Hkv, S, hd),
+            (B, Hq, S, hd)))
+        out, lse = fa.flash_attention(q, k, v, window=window,
+                                      return_lse=True)
+        ops.reset_launch_counts()
+        got = fa.flash_attention_bwd(q, k, v, out, do, lse, window=window)
+        assert ops.route_counts()["flash_attention_bwd"] == {"wgmma": 1,
+                                                             "simt": 0}
+        again = fa.flash_attention_bwd(q, k, v, out, do, lse, window=window)
+        want = ref.flash_attention_bwd(q, k, v, out, do, window=window)
+        for x, y, w in zip(got, again, want, strict=True):
+            assert x.dtype == torch.bfloat16 and _rel_err(x, w) <= 1e-2
+            assert torch.equal(x, y)
+
+
+def test_chunked_lru_scan_bwd_edges_match_plain(cuda_device):
+    """The chunked backward scan at S below, at, one past the chunk length
+    and one past a multiple of it, with and without h0: within 1e-5 of the
+    sequential plain version, and the same bits on a second call."""
+    from repro_torch.kernels import lru_scan as lru
+
+    L = lru.BWD_CHUNK
+    rng = np.random.default_rng(8)
+    for S in (1, L - 1, L, L + 1, 4096 + 3):
+        a = torch.from_numpy((0.5 + 0.499 * rng.random((2, S, 40)))
+                             .astype(np.float32)).to(cuda_device)
+        b, dh = (torch.from_numpy(rng.standard_normal((2, S, 40))
+                                  .astype(np.float32)).to(cuda_device)
+                 for _ in range(2))
+        for h0 in (None, torch.from_numpy(rng.standard_normal((2, 40))
+                                          .astype(np.float32))
+                   .to(cuda_device)):
+            h = lru.lru_scan(a, b, h0)
+            got = lru.lru_scan_bwd(a, h, dh, h0, want_dh0=True)
+            again = lru.lru_scan_bwd(a, h, dh, h0, want_dh0=True)
+            want = ref.lru_scan_bwd(a, h, dh, h0)
+            for x, y, w in zip(got, again, want, strict=True):
+                assert (x is None) == (w is None)
+                if w is not None:
+                    assert _rel_err(x, w) <= 1e-5 and torch.equal(x, y)

@@ -8,6 +8,7 @@ the float32/bf16 segment sums. The CUDA kernels themselves are compared
 with the plain versions in ``tests/test_torch_cuda.py`` (needs a card)
 and by ``chip_smoke.py``.
 """
+import contextlib
 import shutil
 
 import pytest
@@ -141,13 +142,57 @@ def test_segment_sum_empty_segments_and_phantom_rows(case, F):
         assert ones[0].sum() == 16 and ones[5].sum() == 16
 
 
-@pytest.mark.parametrize("dtype,hd,want", [
+ROUTE_CASES = [
     (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 32, "simt"),
     (torch.bfloat16, 16, "simt"), (torch.float32, 256, "simt"),
-    (torch.float32, 64, "simt"), (torch.float32, 16, "simt")])
+    (torch.float32, 64, "simt"), (torch.float32, 16, "simt")]
+
+
+@pytest.mark.parametrize("dtype,hd,want", ROUTE_CASES)
 def test_flash_attention_route(dtype, hd, want):
     assert cuda_fa.route(dtype, hd) == want
+
+
+class _FakeLib:
+    """Stands in for the CUDA library: records which entry was called."""
+
+    def __init__(self):
+        self.called = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.called.append(name)
+            return 0
+        return entry
+
+
+@pytest.mark.parametrize("dtype,hd,want", ROUTE_CASES)
+def test_flash_attention_bwd_route(monkeypatch, dtype, hd, want):
+    """The backward picks its kernel with the forward's ``route``: the
+    wgmma entry for bf16 at hd 64-256, the simt entry otherwise, and counts
+    the launch under that route. The library and the device checks are
+    stood in for, so the dispatch runs on CPU tensors."""
+    fake = _FakeLib()
+    monkeypatch.setattr(cuda_fa._lib, "load", lambda: fake)
+    monkeypatch.setattr(cuda_fa._lib, "require",
+                        lambda t, name, dtypes, ndim: None)
+    monkeypatch.setattr(cuda_fa._lib, "stream_of", lambda t: 0)
+    monkeypatch.setattr(cuda_fa._lib, "on_device",
+                        lambda t: contextlib.nullcontext())
+    q = torch.zeros((1, 2, 8, hd), dtype=dtype)
+    kv = q[:, :1].contiguous()
+    lse = torch.zeros((1, 2, 8))
+    ops.reset_launch_counts()
+    try:
+        cuda_fa.flash_attention_bwd(q, kv, kv, q, q, lse, window=4)
+        assert fake.called == [{"wgmma": "rt_flash_attention_bwd_sm90",
+                                "simt": "rt_flash_attention_bwd"}[want]]
+        routes = ops.route_counts()["flash_attention_bwd"]
+        assert routes == {r: int(r == want) for r in cuda_fa.ROUTES}
+        assert ops.launch_counts()["flash_attention_bwd"] == 1
+    finally:
+        ops.reset_launch_counts()
 
 
 @pytest.mark.parametrize("dtype,hd,err", [
@@ -163,6 +208,9 @@ def test_flash_attention_rejects_before_touching_the_library(
         cuda_fa.route(dtype, hd)
     with pytest.raises(err):
         cuda_fa.flash_attention(q, q[:, :1], q[:, :1])
+    with pytest.raises(err):
+        cuda_fa.flash_attention_bwd(q, q[:, :1], q[:, :1], q, q,
+                                    torch.zeros(q.shape[:3]))
 
 
 def test_kernel_digest_follows_headers_and_flags(tmp_path, monkeypatch):
@@ -208,7 +256,9 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_count_nothing():
                                    "segment_sum": 0, "lru_scan": 0,
                                    "lru_scan_bwd": 0, "flash_attention": 0,
                                    "flash_attention_bwd": 0}
-    assert ops.route_counts() == {"flash_attention": {"wgmma": 0, "simt": 0}}
+    assert ops.route_counts() == {
+        "flash_attention": {"wgmma": 0, "simt": 0},
+        "flash_attention_bwd": {"wgmma": 0, "simt": 0}}
 
 
 @pytest.mark.parametrize("k", [1, 3])
