@@ -9,8 +9,9 @@ before the result lines:
 1. Device line (``nvidia-smi`` name and power limit) and the build of the
    CUDA kernels from ``src/repro_torch/csrc``; the tensor-core kernels
    (the attention forward and the dK/dV and dQ kernels of its backward,
-   every head-dim instance) must build without spills (``-Xptxas -v``)
-   and hold HGMMA instructions (``cuobjdump -sass``).
+   every head-dim instance) and the forward ``lru_scan`` (every built
+   (W, T) instance) must build without spills (``-Xptxas -v``), and the
+   tensor-core kernels hold HGMMA instructions (``cuobjdump -sass``).
 2. Every kernel against its plain PyTorch version on the card, at the
    serving slice's shapes: ``liveness_mask`` (16,000,000 stamps, sentinel
    and clamped query included) and ``snapshot_resolve`` (4,000,000 x 4),
@@ -113,8 +114,14 @@ before the result lines:
    the port's checkpoint served by ``launch.serve.Server.from_checkpoint``.
 
 Phase 2 also holds the model kernels against their plain versions at the
-slice's shapes: ``lru_scan`` at (8, 4096, 2560) with and without ``h0``
-and at (2, 1000, 2560) (atol 1e-5, rtol 1e-4); ``flash_attention`` at
+slice's shapes: ``lru_scan`` at (8, 4096, 2560) with and without ``h0``,
+at (2, 1000, 2560) and at the S edges of its segment of W warps x T steps
+(1, T - 1, T, T + 1, W T - 1, W T, W T + 1, 3 W T + 5) at C = 2600, with
+and without ``h0`` (atol 1e-5, rtol 1e-4), bit-equal on a second call,
+with a planted fault (two halves of time split at a warp boundary, the
+carry dropped) that must exceed the limit; then every built (W, T) pair
+held to the same limits and timed at the serving and training shapes
+(logged); ``flash_attention`` at
 (8, 10, 1, 4096, 256) with window 2048 in bf16 (1e-2, the ``wgmma`` route)
 and in float32 (2e-4, the ``simt`` route: the window edge and the tile
 skipping at the serving shape), without the window in bf16 (1e-2), at
@@ -330,29 +337,35 @@ def kernel_row(name, source, replaces, *, max_abs_err, ms, plain_ms,
 # --------------------------------------------------------------- phase 1
 TENSOR_CORE_KERNELS = ("flash_attention_wgmma_kernel", "dkv_wgmma_kernel",
                        "dq_wgmma_kernel")
+# kernels whose every instance must build without spills: the tensor-core
+# kernels, and the forward scan, which holds 4 T floats a thread in
+# registers (each built (W, T) pair)
+NO_SPILL_KERNELS = TENSOR_CORE_KERNELS + ("lru_scan_kernel",)
 
 
-def check_tensor_core_build(kernels=TENSOR_CORE_KERNELS) -> dict:
-    """The tensor-core kernels as built (the attention forward and the two
-    kernels of its backward, every head-dim instance): ``-Xptxas -v`` must
-    report no spills for any instance, and ``cuobjdump -sass`` of the
-    library must show HGMMA (wgmma) instructions in each."""
+def check_kernel_build(no_spill=NO_SPILL_KERNELS,
+                       tensor_core=TENSOR_CORE_KERNELS) -> dict:
+    """The kernels as built: ``-Xptxas -v`` must report no spills for any
+    instance of ``no_spill`` (the attention forward and the two kernels of
+    its backward, every head-dim instance; the forward scan, every (W, T)
+    instance), and ``cuobjdump -sass`` of the library must show HGMMA
+    (wgmma) instructions in each instance of ``tensor_core``."""
     import re
 
     from repro_torch.kernels import _lib
 
-    def ours(fn):
+    def ours(fn, kernels):
         return next((k for k in kernels if k in fn), None)
     log = _lib.build_log()
     ptxas, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = m.group(1) if ours(m.group(1)) else None
+            name = m.group(1) if ours(m.group(1), no_spill) else None
         elif name and ("spill" in line or "Used" in line):
             ptxas.setdefault(name, []).append(line.strip())
-    for k in kernels:
-        check(any(ours(fn) == k for fn in ptxas),
+    for k in no_spill:
+        check(any(ours(fn, no_spill) == k for fn in ptxas),
               f"no ptxas report for {k} in the build log")
     for fn, lines in ptxas.items():
         check(any("0 bytes spill stores, 0 bytes spill loads" in x
@@ -365,12 +378,13 @@ def check_tensor_core_build(kernels=TENSOR_CORE_KERNELS) -> dict:
     for line in sass.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = m.group(1) if ours(m.group(1)) else None
+            name = m.group(1) if ours(m.group(1), tensor_core) else None
         elif name and "HGMMA" in line:
             hgmma[name] = hgmma.get(name, 0) + 1
-    check(set(hgmma) == set(ptxas),
-          f"HGMMA in {len(hgmma)} of {len(ptxas)} instances of {kernels}: "
-          f"missing in {sorted(set(ptxas) - set(hgmma))}")
+    wgmma = {fn for fn in ptxas if ours(fn, tensor_core)}
+    check(set(hgmma) == wgmma,
+          f"HGMMA in {len(hgmma)} of {len(wgmma)} instances of "
+          f"{tensor_core}: missing in {sorted(wgmma - set(hgmma))}")
     return {"ptxas": {k[-60:]: v for k, v in ptxas.items()},
             "hgmma": {k[-60:]: v for k, v in hgmma.items()}}
 
@@ -559,28 +573,57 @@ def check_segment_sum_bf16(torch) -> dict:
     return check_segment_sum(torch, "segment_sum", values, ids, n, 3e-2)
 
 
+def lru_scan_edges(warps: int, steps: int) -> tuple[int, ...]:
+    """S around one warp's steps T and one segment's W T, and several
+    segments and a ragged tail."""
+    T, seg = steps, warps * steps
+    return (1, T - 1, T, T + 1, seg - 1, seg, seg + 1, 3 * seg + 5)
+
+
 def check_lru_scan(torch) -> dict:
-    """lru_scan against its plain version at the RG-LRU prefill's shape
-    (with and without h0) and at a ragged S; one row, the slice's shape."""
+    """lru_scan against its plain version (atol 1e-5, rtol 1e-4) at the
+    RG-LRU prefill's shape (with and without h0), at a ragged S, and at
+    the S edges of its segment (``lru_scan_edges``) with C = 2600 (not a
+    multiple of the 32-channel tile), with and without h0; the same bits
+    on a second call. A planted fault must exceed the limit: the kernel
+    run on two halves of time split at a warp boundary inside a segment,
+    the carry between them dropped. Returns the row at the slice's
+    shape."""
+    from repro_torch.kernels import lru_scan as lru
     from repro_torch.kernels import ops, ref
 
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + 2)
-    errs = {}
-    for shape, with_h0 in ((LRU_SHAPE, False), (LRU_SHAPE, True),
-                           ((2, 1000, LRU_SHAPE[2]), False)):
+    W, T = lru.SCAN_WARPS, lru.SCAN_STEPS
+
+    def coeffs(shape, with_h0):
         a = 0.5 + 0.499 * torch.rand(shape, generator=g, device="cuda")
         b = torch.randn(shape, generator=g, device="cuda")
         h0 = (torch.randn((shape[0], shape[2]), generator=g, device="cuda")
               if with_h0 else None)
-        got = ops.lru_scan(a, b, h0, use_kernel=True)
-        want = ref.lru_scan(a, b, h0)
+        return a, b, h0
+
+    def held(got, want, what):
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        check(bool(torch.isfinite(got).all()), f"lru_scan {shape}: non-finite")
+        check(bool(torch.isfinite(got).all()), f"lru_scan {what}: non-finite")
         check(bool(torch.allclose(got, want, atol=1e-5, rtol=1e-4)),
-              f"lru_scan {shape} h0={with_h0}: max |kernel - plain| {err}")
-        errs[(shape, with_h0)] = err
+              f"lru_scan {what}: max |kernel - plain| {err}")
+        return err
+
+    errs = {}
+    cases = [(LRU_SHAPE, False), (LRU_SHAPE, True),
+             ((2, 1000, LRU_SHAPE[2]), False)]
+    cases += [((2, S, LRU_SHAPE[2] + 40), with_h0)
+              for S in lru_scan_edges(W, T) for with_h0 in (False, True)]
+    for shape, with_h0 in cases:
+        a, b, h0 = coeffs(shape, with_h0)
+        got = ops.lru_scan(a, b, h0, use_kernel=True)
+        want = ref.lru_scan(a, b, h0)
+        err = held(got, want, f"{shape} h0={with_h0}")
+        check(torch.equal(got, ops.lru_scan(a, b, h0, use_kernel=True)),
+              f"lru_scan {shape} h0={with_h0}: two calls differ")
+        errs[f"{shape},h0={with_h0}"] = err
         if shape == LRU_SHAPE and not with_h0:
             ms = cuda_ms(torch, lambda: ops.lru_scan(a, b, use_kernel=True))
             dev = device_ms(torch, lambda: ops.lru_scan(a, b, use_kernel=True),
@@ -588,15 +631,34 @@ def check_lru_scan(torch) -> dict:
             plain = cuda_ms(torch, lambda: ref.lru_scan(a, b), reps=5,
                             warmup=1)
             row_err = err
+            # the planted fault: two halves split at a warp boundary in
+            # the middle of a segment, the carry between them dropped
+            S = shape[1]
+            cut = S // (2 * W * T) * W * T + W // 2 * T
+            halves = torch.cat([lru.lru_scan(a[:, :cut].contiguous(),
+                                             b[:, :cut].contiguous()),
+                                lru.lru_scan(a[:, cut:].contiguous(),
+                                             b[:, cut:].contiguous())], 1)
+            torch.cuda.synchronize()
+            planted = float((halves - want).abs().max())
+            check(not torch.allclose(halves, want, atol=1e-5, rtol=1e-4),
+                  f"lru_scan: the carry dropped at step {cut} is not caught")
+            del halves
         del a, b, h0, got, want
-    log(f"phase 2 lru_scan max |kernel - plain|: {errs}")
+    log(f"phase 2 lru_scan (W={W}, T={T}) max |kernel - plain|: {errs}; "
+        f"bit-equal on a second call; planted carry dropped: {planted}")
+
     B, S, C = LRU_SHAPE
     n = B * S * C
-    return kernel_row(
+    row = kernel_row(
         "lru_scan", "src/repro_torch/csrc/lru_scan.cu",
         "src/repro/kernels/lru_scan.py:52", max_abs_err=row_err, ms=ms,
         plain_ms=plain, nbytes=12 * n, ops=2 * n, library_ms=None,
         shape=f"B={B},S={S},C={C},float32", dev_ms=dev)
+    row["warps"], row["steps"] = W, T
+    row["planted_carry_dropped"] = planted
+    row["bit_equal"] = True
+    return row
 
 
 def causal_pairs(S: int, window) -> int:
@@ -2147,8 +2209,8 @@ def main() -> int:
     _lib.load()
     log(f"phase 1 build: {time.perf_counter() - t:.3f} s "
         f"(nvcc {_lib.build_seconds})")
-    log(f"phase 1 tensor-core kernels: "
-        f"{json.dumps(check_tensor_core_build())}")
+    log(f"phase 1 ptxas (no spills) and SASS (HGMMA): "
+        f"{json.dumps(check_kernel_build())}")
 
     t = time.perf_counter()
     # rows: each kernel at the shape its main path runs; extra: the other

@@ -53,8 +53,8 @@ _SIGNATURES = {
     "rt_segment_sum": (ctypes.c_int, [_P, ctypes.c_int, _P, _P,
                                       ctypes.c_longlong, ctypes.c_longlong,
                                       ctypes.c_int, _P]),
-    "rt_lru_scan": (ctypes.c_int, [_P, _P, _P, _P, ctypes.c_longlong,
-                                   ctypes.c_longlong, ctypes.c_longlong, _P]),
+    "rt_lru_scan": (ctypes.c_int, [_P] * 4 + [ctypes.c_longlong] * 3
+                    + [ctypes.c_int] * 2 + [_P]),
     "rt_lru_scan_bwd_carry": (ctypes.c_int, [_P] * 3
                               + [ctypes.c_longlong] * 3
                               + [ctypes.c_int, _P]),

@@ -2,7 +2,13 @@
 (the RG-LRU inner loop of every recurrent layer), and its gradient.
 
 The kernels are in ``csrc/lru_scan.cu`` (its header says what bounds each
-on an H100): the scan is one thread per (batch, channel) walking time; its
+on an H100 and the occupancy arithmetic). The scan is one pass over
+device memory, as the TPU kernel's: a block owns (batch, 32 channels) and
+walks time in segments of ``SCAN_WARPS`` warps x ``SCAN_STEPS`` steps;
+each warp scans its steps in registers with no carry in, the warps'
+aggregates are folded in warp order from the segment's carry (a fixed
+order, so two calls give the same bits), and each warp rescans from its
+carry. Nothing crosses between blocks: no scratch, no second pass. The
 gradient is a chunked scan over time in two launches, one thread per
 (batch, chunk of ``BWD_CHUNK`` steps, channel), with a (2, B, n_chunks, C)
 float32 scratch of per-chunk carries that :func:`lru_scan_bwd` allocates.
@@ -23,6 +29,10 @@ import torch
 
 from repro_torch.kernels import _lib
 
+# the forward's segment: warps per block, and time steps per warp; passed
+# to the kernel, whose C entry is built for this pair only and refuses any
+# other (the other pairs timed on an H100 were no faster, PERF.md)
+SCAN_WARPS, SCAN_STEPS = 8, 16
 # time steps per chunk of the backward's chunked scan; passed to the kernel
 BWD_CHUNK = 64
 
@@ -54,7 +64,7 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor,
             code = lib.rt_lru_scan(
                 a.data_ptr(), b.data_ptr(),
                 None if h0 is None else h0.data_ptr(), out.data_ptr(),
-                B, S, C, _lib.stream_of(a))
+                B, S, C, SCAN_WARPS, SCAN_STEPS, _lib.stream_of(a))
         _lib.check(code, "lru_scan")
         lru_scan.launches += 1
     return out

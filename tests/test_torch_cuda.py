@@ -85,9 +85,19 @@ def test_sharded_views_on_card_equal_cpu(cuda_device):
     assert ops.launch_counts()["liveness_mask"] > before
 
 
+def _lru_scan_shapes():
+    """Odd shapes, and S at the edges of the forward's segment of W warps
+    x T steps at C = 40 (not a multiple of the 32-channel tile)."""
+    from repro_torch.kernels import lru_scan as lru
+    W, T = lru.SCAN_WARPS, lru.SCAN_STEPS
+    edges = (1, T - 1, T, T + 1, W * T - 1, W * T, W * T + 1, 3 * W * T + 5)
+    return ((1, 1, 1), (2, 37, 40), (3, 100, 64), (1, 513, 96),
+            *((2, S, 40) for S in edges))
+
+
 def test_lru_scan_kernel_matches_plain(cuda_device):
     rng = np.random.default_rng(1)
-    for B, S, C in ((1, 1, 1), (2, 37, 40), (3, 100, 64), (1, 513, 96)):
+    for B, S, C in _lru_scan_shapes():
         a = torch.from_numpy(rng.uniform(0.5, 0.999, (B, S, C))
                              .astype(np.float32)).to(cuda_device)
         b = torch.from_numpy(rng.standard_normal((B, S, C))
@@ -98,6 +108,22 @@ def test_lru_scan_kernel_matches_plain(cuda_device):
             torch.testing.assert_close(
                 ops.lru_scan(a, b, init, use_kernel=True),
                 ref.lru_scan(a, b, init), atol=1e-5, rtol=1e-4)
+
+
+def test_lru_scan_kernel_gives_the_same_bits_twice(cuda_device):
+    """The warps' aggregates are folded in a fixed order and nothing
+    crosses between blocks: two calls agree bit for bit."""
+    rng = np.random.default_rng(3)
+    for B, S, C in ((2, 4099, 2600), *_lru_scan_shapes()):
+        a = torch.from_numpy(rng.uniform(0.5, 0.999, (B, S, C))
+                             .astype(np.float32)).to(cuda_device)
+        b = torch.from_numpy(rng.standard_normal((B, S, C))
+                             .astype(np.float32)).to(cuda_device)
+        h0 = torch.from_numpy(rng.standard_normal((B, C))
+                              .astype(np.float32)).to(cuda_device)
+        for init in (None, h0):
+            assert torch.equal(ops.lru_scan(a, b, init, use_kernel=True),
+                               ops.lru_scan(a, b, init, use_kernel=True))
 
 
 def test_flash_attention_kernel_matches_plain(cuda_device):

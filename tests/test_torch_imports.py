@@ -60,3 +60,19 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_chip_smoke_imports_no_jax_and_no_repro():
+    """``chip_smoke.py`` runs on a machine without JAX: none of its
+    imports, at any depth of the file, names ``jax`` or ``repro``."""
+    import ast
+    tree = ast.parse((SRC.parent / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module or "")
+    roots = {n.split(".")[0] for n in names}
+    assert "repro_torch" in roots and "torch" in roots
+    assert not roots & {"jax", "jaxlib", "repro"}, sorted(names)

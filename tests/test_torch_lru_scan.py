@@ -59,6 +59,76 @@ def test_lru_scan_matches_pallas(B, S, C, with_h0):
             atol=ATOL, rtol=RTOL)
 
 
+def _lru_scan_segmented(a: torch.Tensor, b: torch.Tensor,
+                        h0: torch.Tensor | None = None, *, steps: int,
+                        warps: int) -> torch.Tensor:
+    """``ref.lru_scan`` computed as the CUDA kernel computes it
+    (``csrc/lru_scan.cu``): time in segments of ``warps`` x ``steps``,
+    walked in order. In a segment each warp scans its ``steps`` steps with
+    no carry in, giving A_w, the product of its a, and H_w, its local state
+    at its last step; the aggregates are folded in warp order from the
+    segment's carry, c_0 = carry, c_{w+1} = A_w c_w + H_w, and each warp
+    scans its steps again from c_w; c_warps carries into the next segment
+    (h0, or 0, into the first). Steps past S are identity steps (a = 1,
+    b = 0)."""
+    B, S, C = a.shape
+    seg = warps * steps
+    n = -(-S // seg)
+    pad = n * seg - S
+    a = torch.cat([a, a.new_ones((B, pad, C))], 1) \
+        .reshape(B, n, warps, steps, C)
+    b = torch.cat([b, b.new_zeros((B, pad, C))], 1) \
+        .reshape(B, n, warps, steps, C)
+    carry = a.new_zeros((B, C)) if h0 is None else h0.clone()
+    out = torch.empty_like(a)
+    for s in range(n):
+        A, H = a.new_ones((B, warps, C)), a.new_zeros((B, warps, C))
+        for u in range(steps):
+            H = a[:, s, :, u] * H + b[:, s, :, u]
+            A = A * a[:, s, :, u]
+        cw = torch.empty_like(A)
+        for w in range(warps):
+            cw[:, w] = carry
+            carry = A[:, w] * carry + H[:, w]
+        h = cw
+        for u in range(steps):
+            h = a[:, s, :, u] * h + b[:, s, :, u]
+            out[:, s, :, u] = h
+    return out.reshape(B, n * seg, C)[:, :S]
+
+
+W, T = cuda_lru.SCAN_WARPS, cuda_lru.SCAN_STEPS   # the kernel's segment
+
+
+@pytest.mark.parametrize("S", [1, T - 1, T, T + 1, W * T - 1, W * T,
+                               W * T + 1, 3 * W * T + 5])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_lru_scan_segmented_matches_sequential_and_pallas(S, with_h0):
+    """The CUDA forward's decomposition (per-warp aggregates folded in warp
+    order, then each warp's steps scanned again from its carry), written
+    out in plain torch with the wrapper's segment: equal to the sequential
+    plain scan and to the Pallas kernel (interpret mode) within 1e-6 of
+    the output's largest magnitude, at S below, at and one past a warp's
+    steps and a segment, and several segments past, at C = 40 (not a
+    multiple of the kernel's 32-channel tile)."""
+    rng = np.random.default_rng(S)
+    B, C = 2, 40
+    a, b = _coeffs(rng, B, S, C)
+    h0 = rng.standard_normal((B, C)).astype(np.float32) if with_h0 else None
+    th0 = None if h0 is None else torch.from_numpy(h0)
+    got = _lru_scan_segmented(torch.from_numpy(a), torch.from_numpy(b), th0,
+                              steps=T, warps=W).numpy()
+    seq = ref.lru_scan(torch.from_numpy(a), torch.from_numpy(b), th0).numpy()
+    pallas = np.asarray(pallas_lru_scan(
+        jnp.asarray(a), jnp.asarray(b),
+        None if h0 is None else jnp.asarray(h0), channel_block=C,
+        time_chunk=32, interpret=True))
+    for what, want in (("sequential", seq), ("pallas", pallas)):
+        assert got.shape == want.shape == (B, S, C), what
+        err = float(np.abs(got - want).max()) / float(np.abs(want).max())
+        assert err <= 1e-6, f"{what}: {err} of the largest magnitude"
+
+
 def test_lru_scan_use_kernel_true_on_cpu_raises():
     a = torch.ones((1, 4, 8))
     with pytest.raises(ValueError, match="CUDA tensor"):
