@@ -113,6 +113,33 @@ before the result lines:
    5 steps against an uninterrupted run, the same with ``compress``, and
    the port's checkpoint served by ``launch.serve.Server.from_checkpoint``.
 
+9. The dense-attention and frames families at full width, each built on
+   the card from ``torch.Generator`` seed 0 in bf16 and freed before the
+   next: ``starcoder2-7b`` (32 layers), ``gemma3-27b`` (62: 52 local with
+   window 1024, 10 global) and ``qwen1.5-110b`` (20 of its 80 layers) through
+   ``Server.generate`` (8, 2 and 2 requests of 4096 prompt tokens + 32
+   greedy); ``musicgen-medium`` (48 layers) and ``internvl2-76b`` (32 of
+   80) on frames (NumPy seed 0) through ``tf.prefill`` and 32
+   ``steps.make_decode_step`` calls (8 and 2 requests of 4096 frames).
+   Per model: ``flash_attention`` launched once per attention layer, all
+   on ``wgmma``, none of ``lru_scan``; each layer's mixer kernel vs plain
+   within ``MIXER_RTOL`` with planted faults (the causal mask off, the kv
+   heads rolled by one, and for gemma3's local layers the window dropped
+   and one kv tile short); the whole prefill kernel vs plain within the
+   model's ``FAMILY_PREFILL_RTOL``, as a second sound route (P rounded
+   once to bf16) must be too, the causal mask off and the kv heads rolled
+   planted in every layer and a control route that keeps P to 4
+   significant bits exceeding it; prefill s,
+   decode ms per step beside the bytes a step must read over 3.35 TB/s,
+   peak memory, and one prefill and 4 decode steps under torch.profiler.
+   Then ``musicgen-medium`` trains: one layer's gradients kernel vs plain
+   route on a frames batch (``GRAD_RTOL``), and ``launch.train.run`` on
+   the full model, 1 + 2 steps of 2 x 4096 frames (96 ``flash_attention``
+   and 48 ``flash_attention_bwd`` launches a step, all on ``wgmma``; the
+   first loss within 1 of ln(2048)). The kernels line gains one
+   ``flash_attention`` row per attention shape phase 9 launched and a
+   ``flash_attention_bwd`` row at musicgen's training shape.
+
 Phase 2 also holds the model kernels against their plain versions at the
 slice's shapes: ``lru_scan`` at (8, 4096, 2560) with and without ``h0``,
 at (2, 1000, 2560) and at the S edges of its segment of W warps x T steps
@@ -204,6 +231,35 @@ GRAD_RTOL = 5e-2
 # the first loss of random weights: ln(vocab) plus about half the logits'
 # variance (about 1 at init), so within 1 of ln(256000)
 FIRST_LOSS_TOL = 1.0
+# phase 9: the dense-attention and frames families at full width, each as
+# (arch, layers run on the card (None: all of them), requests); the bf16
+# weights of qwen1.5-110b's 80 layers (~207 GiB) and internvl2-76b's
+# (~130 GiB) do not fit 80 GB, so their depth is cut
+FAMILY_RUNS = (("starcoder2-7b", None, 8), ("gemma3-27b", None, 2),
+               ("qwen1.5-110b", 20, 2), ("musicgen-medium", None, 8),
+               ("internvl2-76b", 32, 2))
+FAMILY_PROMPT, FAMILY_GEN = 4096, 32
+# the whole prefill, kernel route against plain, relative to each tensor's
+# largest magnitude. (1 + 2^-9)^layers - 1, the rule stated before the
+# first run, failed the kernel and a second sound bf16 route alike on
+# qwen1.5 and internvl2, and passed P kept to 4 bits on the other three.
+# Each limit lies between two readings of its model's prefill on an H100
+# (chip_smoke.py): the larger of the kernel route's and the sound route's
+# (P rounded once to bf16, rounded_p_attention(SOUND_P_BITS)), and the
+# control, P kept to CONTROL_P_BITS significant bits, which must fail;
+# each is their geometric mean, to 3 figures
+FAMILY_PREFILL_RTOL = {"starcoder2-7b": 2.83e-2, "gemma3-27b": 4.75e-2,
+                       "qwen1.5-110b": 1.02e-1, "musicgen-medium": 2.61e-2,
+                       "internvl2-76b": 1.51e-1}
+SOUND_P_BITS, CONTROL_P_BITS = 8, 4
+SPLIT_DECODE_STEPS = 4              # decode steps taken apart per model
+FAMILY_TRAIN_ARCH = "musicgen-medium"
+FAMILY_TRAIN_WARMUP, FAMILY_TRAIN_STEPS = 1, 2
+FLASH_FAMILY_TRAIN_SHAPE = (TRAIN_BATCH, 24, 24, TRAIN_SEQ, 64)
+
+
+# one-element fills that open each device_ms window (see there)
+PROFILER_PRIMER = 64
 
 
 class SmokeFailure(Exception):
@@ -265,25 +321,35 @@ def device_ms(torch, fn, kernel, reps: int = 10, per_call: int = 1,
     names) or if there were more launches than ``per_call`` per call: no
     helper kernels, no copies. Each kernel's time is averaged over the
     launches of it that the profiler saw, and a call's time is the sum of
-    those averages. A window in which the profiler recorded none of a
-    kernel of the call (it has dropped launches at a window's start, and
-    whole windows) is profiled again, up to three windows; None
-    (the row says "not measured") only when every window missed one, and
-    then the log names what each window saw. ``split``, when given, gets
-    each name's own time per launch."""
+    those averages. Each window opens with PROFILER_PRIMER one-element
+    fills, then a synchronise, and leaves them out: late in a run (phase
+    6's windows are whole, phase 8a's are not) the profiler drops the
+    first device records of a window, 8 to 11 (of 20 launches it kept
+    the last 9 or 12, of 5 or 1 mostly none; the host's launches were all
+    recorded, and a 50 ms wait before or after them changed nothing), and
+    the fills take that loss. A window in which the profiler recorded
+    none of a kernel of the call is profiled again, up to three windows;
+    None (the row says "not measured") only when every window missed one,
+    and then the log names what each window saw. ``split``, when given,
+    gets each name's own time per launch."""
     from torch.profiler import ProfilerActivity, profile
 
     names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
+    primer = torch.zeros(1, device="cuda")
     seen = []
     for _ in range(3):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILER_PRIMER):
+                primer.fill_(1.0)
+            torch.cuda.synchronize()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         on_card = [e for e in prof.key_averages()
-                   if e.self_device_time_total > 0]
+                   if e.self_device_time_total > 0
+                   and "FillFunctor" not in e.key]
         others = [e.key for e in on_card
                   if not any(n in e.key for n in names)]
         check(not others, f"{names}: other device work in its window: "
@@ -675,87 +741,93 @@ FLASH_SOURCES = {"wgmma": ("src/repro_torch/csrc/flash_attention_sm90.cu",
 
 
 def check_flash_attention(torch) -> tuple[dict, list[dict]]:
-    """flash_attention against its plain version (the full S x S softmax in
-    float32) and timed beside scaled_dot_product_attention with the same
-    mask. Returns the row at the main path's shape (bf16, window 2048) and
-    the rows of the other cases. Each case must launch the route that
-    ``route(dtype, hd)`` names: bf16 at hd 64-256 the tensor-core kernel
-    (``wgmma``, P rounded to bf16 before the product with v, so 1e-2), the
-    float32 cases the CUDA-core kernel (``simt``, float32 throughout, so
-    2e-4; at the serving shape it pins the window edge and the kv-tile
-    skipping). The bf16 edge cases: a ragged S with a window that is not a
-    multiple of the tile and GQA 4, and S = 4097, one row past a tile."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops, ref
-
+    """flash_attention against its plain version at the serving shape and
+    at the edge cases (see :func:`flash_attention_case`). Returns the row
+    at the main path's shape (bf16, window 2048) and the rows of the other
+    cases: the serving shape in float32 (the ``simt`` route, float32
+    throughout, so 2e-4; it pins the window edge and the kv-tile skipping)
+    and without the window, and the bf16 edge cases: a ragged S with a
+    window that is not a multiple of the tile and GQA 4, and S = 4097, one
+    row past a tile."""
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + 3)
-    rows = []
     cases = ((FLASH_SHAPE, torch.bfloat16, FLASH_WINDOW, 1e-2),
              (FLASH_SHAPE, torch.float32, FLASH_WINDOW, 2e-4),
              (FLASH_SHAPE, torch.bfloat16, None, 1e-2),
              ((1, 8, 2, 1024, 128), torch.float32, None, 2e-4),
              ((1, 8, 2, 1000, 128), torch.bfloat16, 300, 1e-2),
              ((2, 4, 4, 4097, 64), torch.bfloat16, None, 1e-2))
-    for (B, Hq, Hkv, S, hd), dtype, window, tol in cases:
-        q = torch.randn((B, Hq, S, hd), generator=g, device="cuda").to(dtype)
-        k = torch.randn((B, Hkv, S, hd), generator=g, device="cuda").to(dtype)
-        v = torch.randn((B, Hkv, S, hd), generator=g, device="cuda").to(dtype)
-        which = fa.route(dtype, hd)
-        ops.reset_launch_counts()
-        got = ops.flash_attention(q, k, v, window=window, use_kernel=True)
-        want = ref.flash_attention(q, k, v, window=window)
-        torch.cuda.synchronize()
-        check(ops.route_counts()["flash_attention"][which] == 1,
-              f"flash_attention {tuple(q.shape)} {dtype}: did not launch the "
-              f"{which} route ({ops.route_counts()})")
-        err = float((got.float() - want.float()).abs().max())
-        check(got.dtype == dtype and bool(torch.isfinite(got).all()),
-              f"flash_attention {tuple(q.shape)}: dtype or non-finite")
-        check(bool(torch.allclose(got.float(), want.float(), atol=tol,
-                                  rtol=tol)),
-              f"flash_attention {tuple(q.shape)} window={window}: max "
-              f"|kernel - plain| {err} over {tol}")
-        del want
-
-        def kernel():
-            return ops.flash_attention(q, k, v, window=window,
-                                       use_kernel=True)
-        source, name = FLASH_SOURCES[which]
-        ms = cuda_ms(torch, kernel, reps=10)
-        dev = device_ms(torch, kernel, name, reps=5)
-        host = host_ms(torch, kernel, reps=20)
-        plain = cuda_ms(torch, lambda: ref.flash_attention(
-            q, k, v, window=window), reps=5, warmup=1)
-        # the library yardstick: SDPA over kv heads expanded to Hq, with
-        # the same boolean mask (timed only; the port never calls it)
-        ke = k.repeat_interleave(Hq // Hkv, dim=1)
-        ve = v.repeat_interleave(Hq // Hkv, dim=1)
-        pos = torch.arange(S, device="cuda")
-        if window is None:
-            library = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, ke, ve, is_causal=True), reps=10)
-        else:
-            d = pos[:, None] - pos[None, :]
-            mask = (d >= 0) & (d < window)
-            library = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, ke, ve, attn_mask=mask), reps=10)
-        pairs = B * Hq * causal_pairs(S, window)
-        esize = q.element_size()
-        nbytes = esize * (2 * B * Hq * S * hd + 2 * B * Hkv * S * hd)
-        rows.append(kernel_row(
-            "flash_attention", source,
-            "src/repro/kernels/flash_attention.py:78", max_abs_err=err,
-            ms=ms, plain_ms=plain, nbytes=nbytes, ops=4 * hd * pairs,
-            library_ms=library,
-            shape=f"B={B},Hq={Hq},Hkv={Hkv},S={S},hd={hd},"
-                  f"{str(dtype).split('.')[-1]},window={window}",
-            ops_per_s=BF16_TC_OPS_PER_S if dtype == torch.bfloat16
-            else FP32_OPS_PER_S, kernel_route=which, dev_ms=dev, host=host))
-        del q, k, v, ke, ve, got
+    rows = [flash_attention_case(torch, g, *case) for case in cases]
     return rows[0], rows[1:]
+
+
+def flash_attention_case(torch, g, shape, dtype, window, tol) -> dict:
+    """flash_attention at ``shape`` (B, Hq, Hkv, S, hd), causal, on random
+    inputs from ``g``, against its plain version (the full S x S softmax
+    in float32) within ``tol``, and timed beside the plain version and
+    scaled_dot_product_attention with the same mask. The call must launch
+    the route that ``route(dtype, hd)`` names: bf16 at hd 64-256 the
+    tensor-core kernel (``wgmma``, P rounded to bf16 before the product
+    with v, so 1e-2), the rest the CUDA-core kernel (``simt``)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+
+    B, Hq, Hkv, S, hd = shape
+    q = torch.randn((B, Hq, S, hd), generator=g, device="cuda").to(dtype)
+    k = torch.randn((B, Hkv, S, hd), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, Hkv, S, hd), generator=g, device="cuda").to(dtype)
+    which = fa.route(dtype, hd)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, window=window, use_kernel=True)
+    want = ref.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    check(ops.route_counts()["flash_attention"][which] == 1,
+          f"flash_attention {tuple(q.shape)} {dtype}: did not launch the "
+          f"{which} route ({ops.route_counts()})")
+    err = float((got.float() - want.float()).abs().max())
+    check(got.dtype == dtype and bool(torch.isfinite(got).all()),
+          f"flash_attention {tuple(q.shape)}: dtype or non-finite")
+    check(bool(torch.allclose(got.float(), want.float(), atol=tol,
+                              rtol=tol)),
+          f"flash_attention {tuple(q.shape)} window={window}: max "
+          f"|kernel - plain| {err} over {tol}")
+    del want, got
+
+    def kernel():
+        return ops.flash_attention(q, k, v, window=window, use_kernel=True)
+    source, name = FLASH_SOURCES[which]
+    ms = cuda_ms(torch, kernel, reps=10)
+    dev = device_ms(torch, kernel, name, reps=5)
+    host = host_ms(torch, kernel, reps=20)
+    plain = cuda_ms(torch, lambda: ref.flash_attention(
+        q, k, v, window=window), reps=5, warmup=1)
+    # the library yardstick: SDPA over kv heads expanded to Hq, with the
+    # same boolean mask (timed only; the port never calls it)
+    ke = k.repeat_interleave(Hq // Hkv, dim=1)
+    ve = v.repeat_interleave(Hq // Hkv, dim=1)
+    pos = torch.arange(S, device="cuda")
+    if window is None:
+        library = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, ke, ve, is_causal=True), reps=10)
+    else:
+        d = pos[:, None] - pos[None, :]
+        mask = (d >= 0) & (d < window)
+        library = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, ke, ve, attn_mask=mask), reps=10)
+    pairs = B * Hq * causal_pairs(S, window)
+    esize = q.element_size()
+    nbytes = esize * (2 * B * Hq * S * hd + 2 * B * Hkv * S * hd)
+    return kernel_row(
+        "flash_attention", source,
+        "src/repro/kernels/flash_attention.py:78", max_abs_err=err,
+        ms=ms, plain_ms=plain, nbytes=nbytes, ops=4 * hd * pairs,
+        library_ms=library,
+        shape=f"B={B},Hq={Hq},Hkv={Hkv},S={S},hd={hd},"
+              f"{str(dtype).split('.')[-1]},window={window}",
+        ops_per_s=BF16_TC_OPS_PER_S if dtype == torch.bfloat16
+        else FP32_OPS_PER_S, kernel_route=which, dev_ms=dev, host=host)
 
 
 # --------------------------------------------------------------- phase 3
@@ -934,10 +1006,14 @@ def check_small_cpu_agreement(torch) -> int:
 def serve_model(torch, cfg, device: str = "cuda",
                 requests: int = MODEL_REQUESTS, prompt: int = MODEL_PROMPT,
                 gen: int = MODEL_GEN) -> dict:
-    """``Server.generate`` on ``cfg`` (random weights from seed 0),
-    counting the kernels' launches around it; each RG-LRU layer must have
-    launched ``lru_scan`` once and each attention layer
-    ``flash_attention`` once."""
+    """``cfg`` (random weights from seed 0) served on ``requests`` inputs
+    from NumPy seed 0: a token model through ``Server.generate`` (``gen``
+    greedy tokens), a frames model, which ``Server.generate`` refuses,
+    through :func:`generate_frames` (``gen`` decode steps on seeded
+    frames). The kernels' launches are counted around it: each RG-LRU
+    layer must have launched ``lru_scan`` once and each attention layer
+    ``flash_attention`` once, on its tensor-core (``wgmma``) route; the
+    attention calls are also tallied by shape (:class:`attention_shapes`)."""
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -950,13 +1026,27 @@ def serve_model(torch, cfg, device: str = "cuda",
     model = tf.init_params(cfg, g, device)
     sync(torch, device)
     init_s = time.perf_counter() - t
-    prompts = np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (requests, prompt)).astype(np.int32)
-    server = Server(cfg, model)
+    rng = np.random.default_rng(SEED)
+    frames = cfg.embed_mode == "frames"
+    if frames:
+        prompts = rng.standard_normal(
+            (requests, prompt, cfg.d_model)).astype(np.float32)
+        step_frames = rng.standard_normal(
+            (gen, requests, 1, cfg.d_model)).astype(np.float32)
+    else:
+        prompts = rng.integers(0, cfg.vocab_size,
+                               (requests, prompt)).astype(np.int32)
+        server = Server(cfg, model)
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    out = server.generate(prompts, gen)
+    with attention_shapes() as shapes:
+        if frames:
+            out, timings = generate_frames(torch, model, cfg, prompts,
+                                           step_frames)
+        else:
+            out = server.generate(prompts, gen)
+            timings = server.timings
     sync(torch, device)
     counts = ops.launch_counts()
     routes = ops.route_counts()["flash_attention"]
@@ -968,18 +1058,80 @@ def serve_model(torch, cfg, device: str = "cuda",
     for name, n in want.items():
         check(counts[name] == n,
               f"{name} launched {counts[name]} times, expected {n}")
-    # bf16 at head dim 256: every attention layer takes the tensor cores
+    # bf16 at head dim 64-256: every attention layer takes the tensor cores
     check(routes["wgmma"] == want["flash_attention"],
           f"flash_attention routes {routes}, expected "
           f"{want['flash_attention']} wgmma launches")
+    check(sum(shapes.calls.values()) == len(kinds) - kinds.count("rglru"),
+          f"attention calls by shape {shapes.calls}")
     check(out.shape == (requests, gen) and out.dtype == np.int32
           and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
           f"generated tokens of shape {out.shape}, dtype {out.dtype}")
-    return {"cfg": cfg, "model": model, "prompts": prompts, "out": out,
-            "counts": counts, "routes": routes, "init_s": init_s, "timings": server.timings,
-            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
-                         if on_card else None),
-            "params": sum(p.numel() for p in model.parameters())}
+    run = {"cfg": cfg, "model": model, "prompts": prompts, "out": out,
+           "counts": counts, "routes": routes, "shapes": shapes.calls,
+           "init_s": init_s, "timings": timings,
+           "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                        if on_card else None),
+           "params": sum(p.numel() for p in model.parameters())}
+    if frames:
+        run["step_frames"] = step_frames
+    return run
+
+
+def generate_frames(torch, model, cfg, prompts, step_frames):
+    """The frames counterpart of ``Server.generate``: ``tf.prefill`` on
+    (B, P, D) ``prompts``, then one ``launch.steps.make_decode_step`` call
+    per (B, 1, D) frame of ``step_frames`` (G, B, 1, D), each at its
+    position. Returns the argmax code of every step's logits, (B, G) int32
+    (from the prefill's logits, then each decode step's but the last), and
+    the prefill and decode seconds, each ending in a synchronise; every
+    logit must be finite."""
+    from repro_torch.device import to_host
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import transformer as tf
+
+    decode = make_decode_step(cfg)
+    dev = model.device
+    B, P = prompts.shape[:2]
+    gen = step_frames.shape[0]
+    with torch.inference_mode():
+        x = torch.from_numpy(prompts).to(dev)
+        steps_in = torch.from_numpy(step_frames).to(dev)
+        sync(torch, dev.type)
+        t0 = time.perf_counter()
+        logits, cache = tf.prefill(model, cfg, x, capacity=P + gen)
+        sync(torch, dev.type)
+        t1 = time.perf_counter()
+        codes = torch.zeros((B, gen), dtype=torch.int32, device=dev)
+        finite = torch.isfinite(logits).all()
+        for t in range(gen):
+            codes[:, t] = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            logits, cache = decode(model, cache, steps_in[t], P + t)
+            finite = finite & torch.isfinite(logits).all()
+        host = to_host(codes)
+        t2 = time.perf_counter()
+    check(bool(finite), f"{cfg.name}: non-finite frame logits")
+    return host, {"prefill_s": t1 - t0, "decode_s": t2 - t1}
+
+
+class attention_shapes:
+    """Within ``with``, tallies the model path's calls of
+    ``ops.flash_attention`` by (B, Hq, Hkv, S, hd, window) in ``calls``;
+    on a card each is one kernel launch."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.real, self.calls = ops, ops.flash_attention, {}
+
+        def tallied(q, k, v, **kw):
+            key = (*q.shape[:2], k.shape[1], *q.shape[2:], kw.get("window"))
+            self.calls[key] = self.calls.get(key, 0) + 1
+            return self.real(q, k, v, **kw)
+        ops.flash_attention = tallied
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention = self.real
 
 
 def sync(torch, device: str) -> None:
@@ -1039,17 +1191,100 @@ def window_to(window):
     return alter
 
 
+def causal_off(args, kw):
+    """flash_attention with the causal mask off: keys after the query
+    attend too."""
+    return args, {**kw, "causal": False}
+
+
+def kv_heads_rolled(args, kw):
+    """flash_attention with the kv heads rolled by one along the head
+    axis: each group of query heads reads its neighbour's keys and
+    values."""
+    q, k, v = args[:3]
+    return (q, k.roll(1, 1), v.roll(1, 1)) + args[3:], kw
+
+
+KV_TILE = 64                  # the kernels' kv tile (flash_attention*.cu)
+
+
+def attention_faults(cfg, kind: str) -> dict:
+    """Faults to plant in the kernel route of an attention layer of
+    ``kind``, each one changing the layer's function: the causal mask off;
+    with more than one kv head, the kv heads rolled by one; with a window,
+    the window dropped and, where the window is longer than a kv tile, the
+    window one kv tile short."""
+    from repro_torch.nn import attention as attn
+
+    faults = {"causal off": causal_off}
+    if cfg.n_kv_heads > 1:
+        faults["kv heads rolled"] = kv_heads_rolled
+    window = attn.window_for(kind, cfg)
+    if window is not None:
+        faults["window dropped"] = window_to(None)
+        if window > KV_TILE:
+            faults["window one kv tile short"] = window_to(window - KV_TILE)
+    return faults
+
+
+def round_to_bits(torch, x, bits: int):
+    """float32 ``x`` rounded in place to ``bits`` significant bits, to
+    nearest even (bf16 keeps 8: ``round_to_bits(x, 8)`` equals
+    ``x.bfloat16().float()`` for finite ``x``)."""
+    drop = 24 - bits
+    i = x.view(torch.int32)
+    i.add_(((1 << (drop - 1)) - 1) + ((i >> drop) & 1))
+    i.bitwise_and_(~((1 << drop) - 1))
+    return x
+
+
+def rounded_p_attention(torch, bits: int, block: int = 1024):
+    """A stand-in for ``ops.flash_attention`` on the model path: per block
+    of ``block`` queries the exact float32 softmax over the keys it may
+    see, the probabilities P rounded to ``bits`` significant bits, then
+    the product with v in float32 and the output in q's dtype. With 8
+    bits this is another sound bf16 route (P normalised, then rounded
+    once, as neither the kernel nor the plain route does); with fewer it
+    is the control a prefill limit must catch: a route that keeps less
+    of P than bf16 does."""
+    def attend(q, k, v, *, causal=True, window=None, use_kernel=None):
+        check(causal, "rounded_p_attention is causal only")
+        B, Hq, S, hd = q.shape
+        Hkv = k.shape[1]
+        out = torch.empty_like(q)
+        og = out.view(B, Hkv, Hq // Hkv, S, hd)
+        qg = q.view(B, Hkv, Hq // Hkv, S, hd)
+        pos = torch.arange(S, device=q.device)
+        for lo_q in range(0, S, block):
+            hi = min(S, lo_q + block)
+            lo = 0 if window is None else max(0, lo_q - window + 1)
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qg[:, :, :, lo_q:hi]
+                             .float(), k[:, :, lo:hi].float()) * hd ** -0.5
+            d = pos[lo_q:hi, None] - pos[None, lo:hi]
+            mask = d >= 0 if window is None else (d >= 0) & (d < window)
+            s.masked_fill_(~mask, -1e30)
+            p = round_to_bits(torch, torch.softmax(s, dim=-1), bits)
+            del s
+            og[:, :, :, lo_q:hi] = torch.einsum(
+                "bhgqk,bhkd->bhgqd", p, v[:, :, lo:hi].float()).to(q.dtype)
+            del p
+        return out
+    return attend
+
+
 def check_layers_against_plain(torch, run: dict) -> dict:
     """Each layer's mixer through the kernels (``use_kernel=None``, as the
     model path calls them) and through the plain versions, both fed the
     plain route's hidden state, so that no error carries over from the
-    layers before. Both round their bf16 output once from float32 values
+    layers before (tokens or frames, as the run was fed). Both round their
+    bf16 output once from float32 values
     that differ in the last bits (the attention's float32 sums taken in
     another order and its bf16 probabilities rounded from them; the scan's
     one FMA against a product and a sum), so the outputs may differ by one
     bf16 step (2^-8 of the largest magnitude): MIXER_RTOL allows 2.5 steps.
-    The RG-LRU state is the scan's float32 output, held to STATE_RTOL. Planted faults in the first layer of each kind must
-    exceed the limits."""
+    The RG-LRU state is the scan's float32 output, held to STATE_RTOL.
+    Planted faults in the first layer of each kind must exceed the limits:
+    the scan's ``b`` one step late (RG-LRU) and :func:`attention_faults`."""
     from repro_torch.models import transformer as tf
     from repro_torch.nn import attention as attn
     from repro_torch.nn import recurrent as rec
@@ -1057,16 +1292,12 @@ def check_layers_against_plain(torch, run: dict) -> dict:
 
     cfg, model = run["cfg"], run["model"]
     prompts = torch.from_numpy(run["prompts"]).to(model.device)
-    B, S = prompts.shape
+    B, S = prompts.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=model.device)[
         None].expand(B, S)
-    window = attn.window_for("local", cfg)
-    faults = {"attention": {"window dropped": window_to(None)},
-              "rglru": {"b one step late": late_b}}
-    tile = 64                     # the kernel's kv tile (flash_attention.cu)
-    if window is not None and window > tile:
-        faults["attention"]["window one kv tile short"] = window_to(
-            window - tile)
+    faults = {kind: ({"b one step late": late_b} if kind == "rglru"
+                     else attention_faults(cfg, kind))
+              for kind in dict.fromkeys(k for _, k in model.blocks())}
 
     def mixer(block, kind, h, use_kernel):
         if kind == "rglru":
@@ -1089,9 +1320,8 @@ def check_layers_against_plain(torch, run: dict) -> dict:
             plain = mixer(block, kind, h, False)
             e = errors(mixer(block, kind, h, None), plain)
             per_layer.append(e)
-            family = "rglru" if kind == "rglru" else "attention"
-            for name, alter in faults.pop(family, {}).items():
-                with planted("lru_scan" if family == "rglru"
+            for name, alter in faults.pop(kind, {}).items():
+                with planted("lru_scan" if kind == "rglru"
                              else "flash_attention", alter):
                     planted_errs[f"layer{i} {name}"] = errors(
                         mixer(block, kind, h, None), plain)
@@ -1112,16 +1342,41 @@ def check_layers_against_plain(torch, run: dict) -> dict:
     return {"per_layer": per_layer, "worst": worst, "planted": planted_errs}
 
 
+def prefill_errors(torch, cfg, got, want) -> dict:
+    """max_rel_err of a prefill's last-position logits and of every
+    layer's cache against another prefill's."""
+    from repro_torch.models import transformer as tf
+
+    (g_logits, g_cache), (w_logits, w_cache) = got, want
+    errs = {"logits": max_rel_err(torch, g_logits, w_logits)}
+    for i, (gc, wc) in enumerate(zip(tf.layer_caches(cfg, g_cache),
+                                     tf.layer_caches(cfg, w_cache),
+                                     strict=True)):
+        for name in gc:
+            errs[f"layer{i}.{name}"] = max_rel_err(torch, gc[name], wc[name])
+    return errs
+
+
 def check_model_against_plain(torch, run: dict, gen: int = MODEL_GEN,
-                              rtol: float = MODEL_RTOL) -> dict:
+                              rtol: float = MODEL_RTOL,
+                              faults: dict | None = None,
+                              sound: dict | None = None,
+                              controls: dict | None = None) -> dict:
     """The prefill through the kernels against the same prefill through the
     plain versions, both on the card in bf16. The two routes round at other
     places (both round the attention probabilities to bf16 before the
     product with v, but from float32 sums taken in another order; the
     scan's FMA rounds once where the plain loop rounds twice); the
-    differences
-    enter the bf16 residual stream and grow over 26 layers, so each tensor
-    is held to MODEL_RTOL of its largest magnitude."""
+    differences enter the bf16 residual stream and compound over the
+    layers, so each tensor is held to ``rtol`` of its largest magnitude
+    (MODEL_RTOL over recurrentgemma's 26 layers; FAMILY_PREFILL_RTOL).
+    Each of ``faults`` ({name: alter}), planted in every attention layer
+    of a kernel prefill, must exceed ``rtol``. ``sound`` and ``controls``
+    ({name: attend}) each stand in for ``ops.flash_attention`` in a whole
+    prefill: a sound route must stay within ``rtol`` of the plain one as
+    the kernel's must, and a control (a route that keeps less of the
+    attention than bf16 does) must exceed it."""
+    from repro_torch.kernels import ops
     from repro_torch.models import transformer as tf
 
     cfg, model = run["cfg"], run["model"]
@@ -1130,31 +1385,55 @@ def check_model_against_plain(torch, run: dict, gen: int = MODEL_GEN,
     capacity = prompts.shape[1] + gen
     with torch.inference_mode():
         t = time.perf_counter()
-        k_logits, k_cache = tf.prefill(model, cfg, prompts, capacity)
+        kernel = tf.prefill(model, cfg, prompts, capacity)
         sync(torch, device)
         kernel_s = time.perf_counter() - t
         t = time.perf_counter()
-        p_logits, p_cache = tf.prefill(model, cfg, prompts, capacity,
-                                       use_kernel=False)
+        plain = tf.prefill(model, cfg, prompts, capacity, use_kernel=False)
         sync(torch, device)
         plain_s = time.perf_counter() - t
-    check(tuple(k_logits.shape) == (prompts.shape[0], 1, cfg.vocab_size),
-          f"logits shape {tuple(k_logits.shape)}")
-    errs = {"logits": max_rel_err(torch, k_logits, p_logits)}
-    layers = list(zip(tf.layer_caches(cfg, k_cache),
-                      tf.layer_caches(cfg, p_cache)))
-    for i, (kc, pc) in enumerate(layers):
-        for name in kc:
-            errs[f"layer{i}.{name}"] = max_rel_err(torch, kc[name], pc[name])
+    check(tuple(kernel[0].shape) == (prompts.shape[0], 1, cfg.vocab_size),
+          f"logits shape {tuple(kernel[0].shape)}")
+    errs = prefill_errors(torch, cfg, kernel, plain)
+    del kernel
     worst = max(errs, key=errs.get)
     check(errs[worst] <= rtol,
           f"kernel prefill vs plain: {worst} off by {errs[worst]} of its "
           f"largest magnitude (limit {rtol})")
-    per_layer = [max(v for k, v in errs.items()
-                     if k.startswith(f"layer{i}.")) for i in range(len(layers))]
+    planted_errs = {}
+    for name, alter in (faults or {}).items():
+        with torch.inference_mode(), planted("flash_attention", alter):
+            bad = tf.prefill(model, cfg, prompts, capacity)
+        planted_errs[name] = max(prefill_errors(torch, cfg, bad,
+                                                plain).values())
+        del bad
+    missed = [n for n, e in planted_errs.items() if e <= rtol]
+    check(not missed, f"prefill planted faults not caught: {missed} "
+                      f"{planted_errs} (limit {rtol})")
+    stand_in = {}
+    for name, attend in {**(sound or {}), **(controls or {})}.items():
+        real, ops.flash_attention = ops.flash_attention, attend
+        try:
+            with torch.inference_mode():
+                other = tf.prefill(model, cfg, prompts, capacity)
+        finally:
+            ops.flash_attention = real
+        stand_in[name] = max(prefill_errors(torch, cfg, other,
+                                            plain).values())
+        del other
+    over = [n for n in sound or {} if stand_in[n] > rtol]
+    check(not over, f"sound prefill routes over the limit: {over} "
+                    f"{stand_in} (limit {rtol})")
+    missed = [n for n in controls or {} if stand_in[n] <= rtol]
+    check(not missed, f"prefill controls not caught: {missed} {stand_in} "
+                      f"(limit {rtol})")
+    n_layers = len(tf.layer_caches(cfg, plain[1]))
+    per_layer = [max(v for k, v in errs.items() if k.startswith(f"layer{i}."))
+                 for i in range(n_layers)]
     return {"kernel_prefill_s": kernel_s, "plain_prefill_s": plain_s,
             "logits_rel_err": errs["logits"], "worst": worst,
-            "worst_rel_err": errs[worst], "per_layer": per_layer}
+            "worst_rel_err": errs[worst], "per_layer": per_layer,
+            "limit": rtol, "planted": planted_errs, "stand_in": stand_in}
 
 
 # --------------------------------------------------------------- phase 6
@@ -1691,11 +1970,29 @@ def bwd_err(torch, got, want) -> float:
 
 
 def check_flash_attention_bwd(torch) -> tuple[dict, list[dict]]:
-    """flash_attention_bwd against its plain version (the full S x S
-    softmax gradient in float32), fed the same forward output and lse, at
-    the training shape and at the forward's other shapes. Each case must
-    launch the route that ``route(dtype, hd)`` names (bf16 at hd 64-256 the
-    tensor-core kernels, ``wgmma``; the rest ``simt``); a ``wgmma`` case
+    """flash_attention_bwd against its plain version (see
+    :func:`flash_attention_bwd_case`) at the training shape and at the
+    forward's other shapes. Returns the training shape's row and the
+    others."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = ((FLASH_TRAIN_SHAPE, bf16, FLASH_WINDOW, BWD_RTOL_BF16),
+             ((1, 8, 2, 1024, 128), f32, None, BWD_RTOL_F32),
+             ((2, 4, 2, 64, 16), bf16, None, BWD_RTOL_BF16),
+             ((1, 8, 2, 1000, 128), bf16, 300, BWD_RTOL_BF16),
+             ((2, 4, 4, 4097, 64), bf16, None, BWD_RTOL_BF16))
+    rows = [flash_attention_bwd_case(torch, g, *case) for case in cases]
+    return rows[0], rows[1:]
+
+
+def flash_attention_bwd_case(torch, g, shape, dtype, window, tol) -> dict:
+    """flash_attention_bwd at ``shape`` (B, Hq, Hkv, S, hd) on random
+    inputs from ``g`` against its plain version (the full S x S softmax
+    gradient in float32), fed the same forward output and lse, within
+    ``tol`` of each gradient's largest magnitude. The call must launch the
+    route that ``route(dtype, hd)`` names (bf16 at hd 64-256 the
+    tensor-core kernels, ``wgmma``; the rest ``simt``); a ``wgmma`` call
     must give the same bits on a second call. Planted faults must exceed
     the limit: the lse one row off; with a window, the window one kv tile
     short; with a group of query heads, the last head of each group left
@@ -1707,111 +2004,99 @@ def check_flash_attention_bwd(torch) -> tuple[dict, list[dict]]:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
 
-    g = torch.Generator(device="cuda")
-    g.manual_seed(SEED + 5)
-    bf16, f32 = torch.bfloat16, torch.float32
-    cases = ((FLASH_TRAIN_SHAPE, bf16, FLASH_WINDOW, BWD_RTOL_BF16),
-             ((1, 8, 2, 1024, 128), f32, None, BWD_RTOL_F32),
-             ((2, 4, 2, 64, 16), bf16, None, BWD_RTOL_BF16),
-             ((1, 8, 2, 1000, 128), bf16, 300, BWD_RTOL_BF16),
-             ((2, 4, 4, 4097, 64), bf16, None, BWD_RTOL_BF16))
-    rows = []
-    for (B, Hq, Hkv, S, hd), dtype, window, tol in cases:
-        q, k, v, do = (torch.randn(shape, generator=g, device="cuda")
-                       .to(dtype) for shape in ((B, Hq, S, hd),
-                                                (B, Hkv, S, hd),
-                                                (B, Hkv, S, hd),
-                                                (B, Hq, S, hd)))
-        which = fa.route(dtype, hd)
-        out, lse = fa.flash_attention(q, k, v, window=window,
-                                      return_lse=True)
-        ops.reset_launch_counts()
-        got = fa.flash_attention_bwd(q, k, v, out, do, lse, window=window)
-        want = ref.flash_attention_bwd(q, k, v, out, do, window=window)
-        torch.cuda.synchronize()
-        check(ops.route_counts()["flash_attention_bwd"][which] == 1,
-              f"flash_attention_bwd {tuple(q.shape)} {dtype}: did not "
-              f"launch the {which} route ({ops.route_counts()})")
-        check(all(x.dtype == dtype and x.shape == y.shape
-                  for x, y in zip(got, (q, k, v), strict=True)),
-              f"flash_attention_bwd {tuple(q.shape)}: dtypes or shapes")
-        err = bwd_err(torch, got, want)
-        check(err <= tol, f"flash_attention_bwd {tuple(q.shape)} {dtype} "
-                          f"window={window}: {err} of the largest gradient "
-                          f"over {tol}")
-        bit_equal = None
-        if which == "wgmma":
-            again = fa.flash_attention_bwd(q, k, v, out, do, lse,
-                                           window=window)
-            bit_equal = all(torch.equal(x, y)
-                            for x, y in zip(got, again, strict=True))
-            check(bit_equal, f"flash_attention_bwd {tuple(q.shape)}: two "
-                             "calls differ")
-            del again
-        faults = {"lse one row off": fa.flash_attention_bwd(
-            q, k, v, out, do, lse.roll(1, -1), window=window)}
-        if window is not None and window > 64:
-            faults["window one kv tile short"] = fa.flash_attention_bwd(
-                q, k, v, out, do, lse, window=window - 64)
-        if Hq > Hkv:
-            short = do.clone()
-            short[:, Hq // Hkv - 1::Hq // Hkv] = 0
-            faults["group walk one head short"] = fa.flash_attention_bwd(
-                q, k, v, out, short, lse, window=window)
-            del short
-        planted_errs = {n: bwd_err(torch, f, want) for n, f in faults.items()}
-        check(all(e > tol for e in planted_errs.values()),
-              f"flash_attention_bwd planted faults not caught: "
-              f"{planted_errs}")
-        del got, faults
+    bf16 = torch.bfloat16
+    B, Hq, Hkv, S, hd = shape
+    q, k, v, do = (torch.randn(dims, generator=g, device="cuda").to(dtype)
+                   for dims in ((B, Hq, S, hd), (B, Hkv, S, hd),
+                                (B, Hkv, S, hd), (B, Hq, S, hd)))
+    which = fa.route(dtype, hd)
+    out, lse = fa.flash_attention(q, k, v, window=window,
+                                  return_lse=True)
+    ops.reset_launch_counts()
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, window=window)
+    want = ref.flash_attention_bwd(q, k, v, out, do, window=window)
+    torch.cuda.synchronize()
+    check(ops.route_counts()["flash_attention_bwd"][which] == 1,
+          f"flash_attention_bwd {tuple(q.shape)} {dtype}: did not "
+          f"launch the {which} route ({ops.route_counts()})")
+    check(all(x.dtype == dtype and x.shape == y.shape
+              for x, y in zip(got, (q, k, v), strict=True)),
+          f"flash_attention_bwd {tuple(q.shape)}: dtypes or shapes")
+    err = bwd_err(torch, got, want)
+    check(err <= tol, f"flash_attention_bwd {tuple(q.shape)} {dtype} "
+                      f"window={window}: {err} of the largest gradient "
+                      f"over {tol}")
+    bit_equal = None
+    if which == "wgmma":
+        again = fa.flash_attention_bwd(q, k, v, out, do, lse,
+                                       window=window)
+        bit_equal = all(torch.equal(x, y)
+                        for x, y in zip(got, again, strict=True))
+        check(bit_equal, f"flash_attention_bwd {tuple(q.shape)}: two "
+                         "calls differ")
+        del again
+    faults = {"lse one row off": fa.flash_attention_bwd(
+        q, k, v, out, do, lse.roll(1, -1), window=window)}
+    if window is not None and window > 64:
+        faults["window one kv tile short"] = fa.flash_attention_bwd(
+            q, k, v, out, do, lse, window=window - 64)
+    if Hq > Hkv:
+        short = do.clone()
+        short[:, Hq // Hkv - 1::Hq // Hkv] = 0
+        faults["group walk one head short"] = fa.flash_attention_bwd(
+            q, k, v, out, short, lse, window=window)
+        del short
+    planted_errs = {n: bwd_err(torch, f, want) for n, f in faults.items()}
+    check(all(e > tol for e in planted_errs.values()),
+          f"flash_attention_bwd planted faults not caught: "
+          f"{planted_errs}")
+    del got, faults
 
-        def kernel():
-            return fa.flash_attention_bwd(q, k, v, out, do, lse,
-                                          window=window)
-        source, names = FLASH_BWD_SOURCES[which]
-        ms = cuda_ms(torch, kernel, reps=5)
-        dev_split: dict = {}
-        dev = device_ms(torch, kernel, names, reps=3, per_call=3,
-                        split=dev_split)
-        plain = cuda_ms(torch, lambda: ref.flash_attention_bwd(
-            q, k, v, out, do, window=window), reps=3, warmup=1)
-        del want
-        # the library yardstick: SDPA's backward over kv heads expanded to
-        # Hq, with the same boolean mask (timed only; the port never
-        # calls it)
-        qg = q.detach().requires_grad_()
-        ke = k.repeat_interleave(Hq // Hkv, dim=1).requires_grad_()
-        ve = v.repeat_interleave(Hq // Hkv, dim=1).requires_grad_()
-        if window is None:
-            o = F.scaled_dot_product_attention(qg, ke, ve, is_causal=True)
-        else:
-            pos = torch.arange(S, device="cuda")
-            d = pos[:, None] - pos[None, :]
-            o = F.scaled_dot_product_attention(
-                qg, ke, ve, attn_mask=(d >= 0) & (d < window))
-        library = cuda_ms(torch, lambda: torch.autograd.grad(
-            o, (qg, ke, ve), do, retain_graph=True), reps=5)
-        del o, qg, ke, ve
-        pairs = B * Hq * causal_pairs(S, window)
-        esize = q.element_size()
-        nbytes = esize * (4 * B * Hq * S * hd + 4 * B * Hkv * S * hd) \
-            + 4 * B * Hq * S
-        row = kernel_row(
-            "flash_attention_bwd", source,
-            "src/repro/kernels/flash_attention.py:78", max_abs_err=err,
-            ms=ms, plain_ms=plain, nbytes=nbytes, ops=10 * hd * pairs,
-            library_ms=library,
-            shape=f"B={B},Hq={Hq},Hkv={Hkv},S={S},hd={hd},"
-                  f"{str(dtype).split('.')[-1]},window={window}",
-            ops_per_s=BF16_TC_OPS_PER_S if dtype == bf16 else FP32_OPS_PER_S,
-            kernel_route=which, dev_ms=dev)
-        row["device_ms_split"] = dev_split
-        row["planted"] = planted_errs
-        row["limit"] = tol
-        row["bit_equal"] = bit_equal
-        rows.append(row)
-        del q, k, v, do, out, lse
-    return rows[0], rows[1:]
+    def kernel():
+        return fa.flash_attention_bwd(q, k, v, out, do, lse,
+                                      window=window)
+    source, names = FLASH_BWD_SOURCES[which]
+    ms = cuda_ms(torch, kernel, reps=5)
+    dev_split: dict = {}
+    dev = device_ms(torch, kernel, names, reps=3, per_call=3,
+                    split=dev_split)
+    plain = cuda_ms(torch, lambda: ref.flash_attention_bwd(
+        q, k, v, out, do, window=window), reps=3, warmup=1)
+    del want
+    # the library yardstick: SDPA's backward over kv heads expanded to
+    # Hq, with the same boolean mask (timed only; the port never
+    # calls it)
+    qg = q.detach().requires_grad_()
+    ke = k.repeat_interleave(Hq // Hkv, dim=1).requires_grad_()
+    ve = v.repeat_interleave(Hq // Hkv, dim=1).requires_grad_()
+    if window is None:
+        o = F.scaled_dot_product_attention(qg, ke, ve, is_causal=True)
+    else:
+        pos = torch.arange(S, device="cuda")
+        d = pos[:, None] - pos[None, :]
+        o = F.scaled_dot_product_attention(
+            qg, ke, ve, attn_mask=(d >= 0) & (d < window))
+    library = cuda_ms(torch, lambda: torch.autograd.grad(
+        o, (qg, ke, ve), do, retain_graph=True), reps=5)
+    del o, qg, ke, ve
+    pairs = B * Hq * causal_pairs(S, window)
+    esize = q.element_size()
+    nbytes = esize * (4 * B * Hq * S * hd + 4 * B * Hkv * S * hd) \
+        + 4 * B * Hq * S
+    row = kernel_row(
+        "flash_attention_bwd", source,
+        "src/repro/kernels/flash_attention.py:78", max_abs_err=err,
+        ms=ms, plain_ms=plain, nbytes=nbytes, ops=10 * hd * pairs,
+        library_ms=library,
+        shape=f"B={B},Hq={Hq},Hkv={Hkv},S={S},hd={hd},"
+              f"{str(dtype).split('.')[-1]},window={window}",
+        ops_per_s=BF16_TC_OPS_PER_S if dtype == bf16 else FP32_OPS_PER_S,
+        kernel_route=which, dev_ms=dev)
+    row["device_ms_split"] = dev_split
+    row["planted"] = planted_errs
+    row["limit"] = tol
+    row["bit_equal"] = bit_equal
+    return row
 
 
 LRU_BWD_KERNELS = ("lru_scan_bwd_carry_kernel", "lru_scan_bwd_kernel")
@@ -1931,23 +2216,31 @@ def check_lru_scan_bwd(torch) -> tuple[dict, dict]:
 
 def training_batch(cfg, index: int, batch: int = TRAIN_BATCH,
                    seq: int = TRAIN_SEQ) -> dict:
-    """Batch ``index`` of the training pipeline (Markov data, seed 0)."""
+    """Batch ``index`` of the training pipeline (Markov data, seed 0; a
+    frames model's inputs are seeded (batch, seq, d_model) frames), as
+    ``launch.train.run`` makes it."""
     from repro_torch.train.data import TokenPipeline
 
-    return TokenPipeline(cfg.vocab_size, batch, seq,
-                         seed=SEED).batch_view(index).value()
+    return TokenPipeline(
+        cfg.vocab_size, batch, seq, seed=SEED,
+        frames_dim=cfg.d_model if cfg.embed_mode == "frames" else None,
+    ).batch_view(index).value()
 
 
 def check_training_gradients(torch, cfg, device: str = "cuda",
                              batch: int = TRAIN_BATCH,
                              seq: int = TRAIN_SEQ) -> dict:
-    """One unit (3 layers) of ``cfg`` at full width: the loss and every
-    parameter's gradient through the kernel route (forward and backward
-    kernels) against the plain route (autograd of the plain versions), both
-    on the card from the same float32 master weights (seed 0) and batch.
-    Each gradient within GRAD_RTOL of its largest magnitude (bf16 compute on
-    both routes, rounded at other places); faults planted in the backward
-    kernels must exceed it."""
+    """One unit of ``cfg`` at full width (recurrentgemma's 3 layers, one
+    layer of a model whose pattern is one attention kind): the loss and
+    every parameter's gradient through the kernel route (forward and
+    backward kernels) against the plain route (autograd of the plain
+    versions), both on the card from the same float32 master weights (seed
+    0) and batch (tokens or frames). Each gradient within GRAD_RTOL of its
+    largest magnitude (bf16 compute on both routes, rounded at other
+    places); faults planted in the backward kernels must exceed it: the
+    attention backward with the causal mask off and, where the unit has a
+    window, without it; the scan backward, where the unit has RG-LRU
+    layers, with dh one step late."""
     import dataclasses
 
     from repro_torch.kernels import flash_attention as fa
@@ -1984,12 +2277,17 @@ def check_training_gradients(torch, cfg, device: str = "cuda",
     check(errs[worst] <= GRAD_RTOL and loss_err <= GRAD_RTOL,
           f"kernel vs plain gradients: {worst} off by {errs[worst]}, loss "
           f"by {loss_err} (limit {GRAD_RTOL})")
-    faults = {"attention backward without its window": planted(
-                  "flash_attention_bwd", window_to(None), fa),
-              "scan backward with dh one step late": planted(
-                  "lru_scan_bwd", lambda args, kw: (
-                      args[:2] + (args[2].roll(1, 1),) + args[3:], kw),
-                  lru)}
+    from repro_torch.nn import attention as attn
+
+    faults = {"attention backward with the causal mask off": planted(
+        "flash_attention_bwd", causal_off, fa)}
+    if any(attn.window_for(k, cfg) is not None for k in cfg.pattern):
+        faults["attention backward without its window"] = planted(
+            "flash_attention_bwd", window_to(None), fa)
+    if "rglru" in cfg.pattern:
+        faults["scan backward with dh one step late"] = planted(
+            "lru_scan_bwd", lambda args, kw: (
+                args[:2] + (args[2].roll(1, 1),) + args[3:], kw), lru)
     planted_errs = {}
     for name, fault in faults.items():
         with fault:
@@ -2021,17 +2319,18 @@ def launches_per_step(cfg) -> dict:
 
 
 def train_model(torch, cfg, device: str = "cuda", batch: int = TRAIN_BATCH,
-                seq: int = TRAIN_SEQ) -> dict:
+                seq: int = TRAIN_SEQ, warmup: int = TRAIN_WARMUP,
+                steps: int = TRAIN_STEPS) -> dict:
     """The main path of phase 8: ``launch.train.run`` on ``cfg`` at full
-    width and depth, TRAIN_WARMUP + TRAIN_STEPS steps of TRAIN_BATCH x
-    TRAIN_SEQ Markov tokens (seed 0), with the launch counts reset just
-    before and read just after."""
+    width and depth, ``warmup`` + ``steps`` steps of ``batch`` x ``seq``
+    Markov tokens (seed 0; frames for a frames model), with the launch
+    counts reset just before and read just after."""
     import math
 
     from repro_torch.kernels import ops
     from repro_torch.launch import train as ptrain
 
-    steps_n = TRAIN_WARMUP + TRAIN_STEPS
+    steps_n = warmup + steps
     times: list[float] = []
     on_card = device == "cuda"
     if on_card:
@@ -2061,7 +2360,7 @@ def train_model(torch, cfg, device: str = "cuda", batch: int = TRAIN_BATCH,
     check(all(math.isfinite(x) for x in vals), f"losses {vals}")
     check(abs(vals[0] - math.log(cfg.vocab_size)) < FIRST_LOSS_TOL,
           f"first loss {vals[0]}, ln(vocab) {math.log(cfg.vocab_size)}")
-    step_s = statistics.median(times[TRAIN_WARMUP:])
+    step_s = statistics.median(times[warmup:])
     return {"cfg": cfg, "state": state, "losses": vals, "times": times,
             "step_s": step_s, "tokens_per_s": batch * seq / step_s,
             "wall_s": wall, "counts": counts, "routes": routes,
@@ -2183,6 +2482,301 @@ def train_fault_path(torch, cfg, device: str = "cuda") -> dict:
                                         for i in range(kw["steps"])],
                     "served": tokens.tolist()})
     return out
+
+
+# --------------------------------------------------------------- phase 9
+def decode_bound(model, cfg, batch: int, prompt: int, gen: int) -> dict:
+    """The bytes one decode step must read, averaged over a run's ``gen``
+    steps after a ``prompt``: every weight but the embedding table once,
+    and each attention layer's bf16 keys and values at the positions the
+    step attends to (all up to it, or its window's); over
+    HBM_BYTES_PER_S, the step's bound in ms."""
+    from repro_torch.configs import ATTN_KINDS
+    from repro_torch.nn import attention as attn
+
+    weights = sum(p.numel() * p.element_size()
+                  for n, p in model.named_parameters() if n != "embed")
+    per_position = 2 * batch * cfg.n_kv_heads * cfg.resolved_head_dim * 2
+    positions = 0
+    for _, kind in model.blocks():
+        if kind not in ATTN_KINDS:
+            continue
+        window = attn.window_for(kind, cfg)
+        for t in range(gen):
+            n = prompt + t + 1
+            positions += n if window is None else min(n, window)
+    cache = per_position * positions / gen
+    return {"weight_bytes": weights, "cache_bytes": cache,
+            "bound_ms": (weights + cache) / HBM_BYTES_PER_S * 1e3}
+
+
+def busy_split(prof, wall_s: float, per: int = 1) -> dict:
+    """From a ``torch.profiler`` window of ``wall_s`` seconds (device
+    activity only): the device busy share, device ms per ``per`` calls,
+    flash_attention's share of the device time and the six kernels taking
+    the most. Late in a run the profiler drops up to the first 11 device
+    records of a window (:func:`device_ms`): a few of its thousands."""
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events)
+    flash = sum(e.self_device_time_total for e in events
+                if "flash_attention" in e.key)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    return {"wall_ms": wall_s * 1e3 / per, "device_ms": busy / 1e3 / per,
+            "busy_share": busy / (wall_s * 1e6),
+            "flash_share": flash / max(busy, 1e-30),
+            "launches": sum(e.count for e in events) // per,
+            "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                               / per for e in top}}
+
+
+def serve_time_split(torch, run: dict, steps: int = SPLIT_DECODE_STEPS
+                     ) -> dict:
+    """One more kernel prefill of the run's inputs, then ``steps`` decode
+    steps after it (the greedy tokens, or the run's next frames), each
+    under ``torch.profiler`` between synchronises: see :func:`busy_split`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import transformer as tf
+
+    cfg, model = run["cfg"], run["model"]
+    dev = model.device
+    prompts = torch.from_numpy(run["prompts"]).to(dev)
+    P = prompts.shape[1]
+    decode = make_decode_step(cfg)
+    frames = None
+    if cfg.embed_mode == "frames":
+        frames = torch.from_numpy(run["step_frames"][:steps]).to(dev)
+    out = {}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            logits, cache = tf.prefill(model, cfg, prompts,
+                                       capacity=P + steps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        out["prefill"] = busy_split(prof, wall)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for i in range(steps):
+                x = frames[i] if frames is not None else torch.argmax(
+                    logits[:, -1], dim=-1).to(torch.int32)[:, None]
+                logits, cache = decode(model, cache, x, P + i)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        out["decode"] = busy_split(prof, wall, per=steps)
+    return out
+
+
+def serve_family(torch, arch: str, layers, requests: int) -> dict:
+    """Phase 9 for one model: ``arch`` at full width (``layers`` of its
+    layers, all when None) served on ``requests`` inputs of FAMILY_PROMPT
+    positions and FAMILY_GEN decode steps (:func:`serve_model`); each
+    layer's mixer kernel vs plain (:func:`check_layers_against_plain`); the
+    whole prefill kernel vs plain within its FAMILY_PREFILL_RTOL, as the
+    sound route with P rounded once to bf16 must be, with the causal mask
+    off and (GQA or MHA) the kv heads rolled planted in every layer and
+    the control (P kept to CONTROL_P_BITS bits) exceeding it; the time
+    split; the decode step's bound. The model is freed before it
+    returns."""
+    import gc
+
+    full_layers = family_config(arch, None).num_layers
+    cfg = family_config(arch, layers)
+    torch.cuda.reset_peak_memory_stats()
+    run = serve_model(torch, cfg, requests=requests, prompt=FAMILY_PROMPT,
+                      gen=FAMILY_GEN)
+    t = time.perf_counter()
+    layer_check = check_layers_against_plain(torch, run)
+    layer_s = time.perf_counter() - t
+    t = time.perf_counter()
+    # an unwindowed kind's faults: the causal mask off, the kv heads rolled
+    agree = check_model_against_plain(
+        torch, run, gen=FAMILY_GEN, rtol=FAMILY_PREFILL_RTOL[arch],
+        faults=attention_faults(cfg, "attn"),
+        sound={f"P to {SOUND_P_BITS} bits": rounded_p_attention(
+            torch, SOUND_P_BITS)},
+        controls={f"P to {CONTROL_P_BITS} bits": rounded_p_attention(
+            torch, CONTROL_P_BITS)})
+    model_s = time.perf_counter() - t
+    split = serve_time_split(torch, run)
+    bound = decode_bound(run["model"], cfg, requests, FAMILY_PROMPT,
+                         FAMILY_GEN)
+    tm = run["timings"]
+    out = {"arch": arch, "layers": cfg.num_layers, "full_layers": full_layers,
+           "params": run["params"], "init_s": run["init_s"],
+           "requests": requests, "prefill_s": tm["prefill_s"],
+           "decode_ms": tm["decode_s"] * 1e3 / FAMILY_GEN,
+           "decode_tokens_per_s": requests * FAMILY_GEN / tm["decode_s"],
+           "decode_bound": bound, "generate_peak_gib": run["peak_gib"],
+           "counts": {k: v for k, v in run["counts"].items() if v},
+           "routes": run["routes"], "shapes": run["shapes"],
+           "out_head": run["out"][0, :8].tolist(),
+           "layers_worst": layer_check["worst"]["out"],
+           "layers_per_layer": [e["out"] for e in layer_check["per_layer"]],
+           "layers_planted": {n: e["out"] for n, e in
+                              layer_check["planted"].items()},
+           "layer_check_s": layer_s, "prefill_check": agree,
+           "prefill_check_s": model_s, "split": split}
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def log_family(fam: dict, wall_s: float) -> None:
+    agree, split, bound = (fam["prefill_check"], fam["split"],
+                           fam["decode_bound"])
+    cut = ("" if fam["layers"] == fam["full_layers"] else
+           f" (reduced: num_layers {fam['full_layers']} -> {fam['layers']})")
+    log(f"phase 9 {fam['arch']}: {fam['layers']} layers{cut}, "
+        f"{fam['params']} parameters built in {fam['init_s']:.3f} s; "
+        f"{fam['requests']} x {FAMILY_PROMPT} prompt + {FAMILY_GEN} decode "
+        f"steps: prefill {fam['prefill_s']:.3f} s, decode "
+        f"{fam['decode_ms']:.3f} ms per step ({fam['decode_tokens_per_s']:.1f}"
+        f" tokens/s) against a bound of {bound['bound_ms']:.3f} ms "
+        f"({bound['weight_bytes']} weight bytes + {bound['cache_bytes']:.0f} "
+        f"cache bytes a step at 3.35 TB/s); peak device memory "
+        f"{fam['generate_peak_gib']:.3f} GiB in generate, "
+        f"{fam['peak_gib']:.3f} GiB in the phase; launches {fam['counts']}, "
+        f"flash_attention routes {fam['routes']}, by (B, Hq, Hkv, S, hd, "
+        f"window) {fam['shapes']}; first codes {fam['out_head']}")
+    log(f"phase 9 {fam['arch']} layer by layer, kernel vs plain mixer: worst "
+        f"{fam['layers_worst']:.3e} (limit {MIXER_RTOL}); planted "
+        f"{json.dumps(fam['layers_planted'])}; per layer " + " ".join(
+            f"{x:.2e}" for x in fam["layers_per_layer"])
+        + f"; {fam['layer_check_s']:.3f} s")
+    log(f"phase 9 {fam['arch']} prefill kernel {agree['kernel_prefill_s']:.3f}"
+        f" s vs plain {agree['plain_prefill_s']:.3f} s: logits max rel err "
+        f"{agree['logits_rel_err']:.3e}, worst {agree['worst']} "
+        f"{agree['worst_rel_err']:.3e} (limit {agree['limit']:.4e}); planted "
+        f"{json.dumps(agree['planted'])}; sound and control routes "
+        f"{json.dumps(agree['stand_in'])}; per-layer cache " + " ".join(
+            f"{x:.2e}" for x in agree["per_layer"])
+        + f"; {fam['prefill_check_s']:.3f} s")
+    log(f"phase 9 {fam['arch']} time split: {json.dumps(split)}; model "
+        f"{wall_s:.3f} s")
+
+
+def train_family(torch) -> dict:
+    """Phase 9's training: one FAMILY_TRAIN_ARCH layer's gradients kernel
+    vs plain route (:func:`check_training_gradients` on a frames batch),
+    then ``launch.train.run`` on the full model (FAMILY_TRAIN_WARMUP +
+    FAMILY_TRAIN_STEPS steps of 2 x 4096 frames). Returns that run's
+    launch counts."""
+    import gc
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(FAMILY_TRAIN_ARCH)
+    t = time.perf_counter()
+    grads = check_training_gradients(torch, cfg)
+    torch.cuda.empty_cache()
+    log(f"phase 9 {cfg.name} one layer at full width, frames batch, kernel "
+        f"vs plain route: loss {grads['loss_kernel']:.6f} vs "
+        f"{grads['loss_plain']:.6f}; worst gradient {grads['worst']} "
+        f"{grads['worst_rel_err']:.3e} (limit {GRAD_RTOL}); planted "
+        f"{json.dumps(grads['planted'])}; {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    run = train_model(torch, cfg, warmup=FAMILY_TRAIN_WARMUP,
+                      steps=FAMILY_TRAIN_STEPS)
+    launches = run["counts"]
+    counts = {k: v for k, v in launches.items() if v}
+    log(f"phase 9 train {cfg.name}: {run['params']} parameters, "
+        f"{FAMILY_TRAIN_WARMUP} + {FAMILY_TRAIN_STEPS} steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} frames: losses "
+        + " ".join(f"{x:.4f}" for x in run["losses"])
+        + "; step s " + " ".join(f"{x:.3f}" for x in run["times"])
+        + f"; median timed step {run['step_s']:.3f} s, "
+        f"{run['tokens_per_s']:.1f} tokens/s; peak device memory "
+        f"{run['peak_gib']:.3f} GiB; launches {counts} (per step "
+        f"{launches_per_step(cfg)}), flash_attention routes {run['routes']}"
+        f", flash_attention_bwd routes {run['bwd_routes']}; "
+        f"{time.perf_counter() - t:.3f} s")
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def family_config(arch: str, layers):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          num_layers=layers)
+
+
+def family_attention_shapes(cfg, requests: int) -> dict:
+    """{(B, Hq, Hkv, S, hd, window): layers}: the attention calls a
+    prefill of ``requests`` x FAMILY_PROMPT positions makes, one per
+    attention layer; a window is passed only where the prompt is longer
+    than it and a multiple of it (``nn.attention.attn_forward``)."""
+    from repro_torch.configs import ATTN_KINDS
+    from repro_torch.nn import attention as attn
+
+    S, calls = FAMILY_PROMPT, {}
+    for kind in list(cfg.pattern) * cfg.num_units + list(cfg.tail_pattern):
+        if kind not in ATTN_KINDS:
+            continue
+        window = attn.window_for(kind, cfg)
+        if window is not None and (window >= S or S % window):
+            window = None
+        key = (requests, cfg.n_heads, cfg.n_kv_heads, S,
+               cfg.resolved_head_dim, window)
+        calls[key] = calls.get(key, 0) + 1
+    return calls
+
+
+def serve_families(torch, rows: list) -> None:
+    """Phase 9. First a ``flash_attention`` row at every attention shape
+    the FAMILY_RUNS will launch and a ``flash_attention_bwd`` row at
+    FAMILY_TRAIN_ARCH's training shape, on a card that holds no model
+    yet; then each model through :func:`serve_family`, whose tally of attention
+    calls must equal :func:`family_attention_shapes` (which proves that
+    gemma3's local layers got their window) and whose ``flash_attention``
+    launch count must equal its total, and :func:`train_family`. The rows,
+    with the launches of those runs split by shape as
+    :func:`family_attention_shapes` gives them (summed over the models
+    that share a shape), are appended to ``rows``."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 9)
+    expected = {arch: family_attention_shapes(family_config(arch, layers),
+                                              requests)
+                for arch, layers, requests in FAMILY_RUNS}
+    by_shape: dict = {}
+    for arch, calls in expected.items():
+        for key in calls:
+            if key not in by_shape:
+                B, Hq, Hkv, S, hd, window = key
+                by_shape[key] = flash_attention_case(
+                    torch, g, (B, Hq, Hkv, S, hd), torch.bfloat16, window,
+                    1e-2)
+                by_shape[key].update(launches=0, models=[])
+            by_shape[key]["models"].append(arch)
+    bwd_row = flash_attention_bwd_case(torch, g, FLASH_FAMILY_TRAIN_SHAPE,
+                                       torch.bfloat16, None, BWD_RTOL_BF16)
+    for arch, layers, requests in FAMILY_RUNS:
+        t = time.perf_counter()
+        fam = serve_family(torch, arch, layers, requests)
+        check(fam["shapes"] == expected[arch],
+              f"{arch}: attention calls {fam['shapes']}, expected "
+              f"{expected[arch]}")
+        check(fam["counts"].get("flash_attention") == sum(
+            expected[arch].values()), f"{arch}: flash_attention launched "
+              f"{fam['counts']}, expected {sum(expected[arch].values())}")
+        # the wrapper's count is the run's launches; the checks above split
+        # it by shape as the model's layers do
+        for key, n in expected[arch].items():
+            by_shape[key]["launches"] += n
+        log_family(fam, time.perf_counter() - t)
+    bwd_row["launches"] = train_family(torch)["flash_attention_bwd"]
+    rows.extend(by_shape.values())
+    rows.append(bwd_row)
 
 
 def main() -> int:
@@ -2415,6 +3009,11 @@ def main() -> int:
         if name in ("lru_scan", "flash_attention"):
             # the training path's launches of the same kernel (phase 8c)
             row["launches_training"] = train_counts[name]
+
+    t = time.perf_counter()
+    serve_families(torch, rows)
+    log(f"phase 9 the dense-attention and frames families: "
+        f"{time.perf_counter() - t:.3f} s")
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"
                     or m.startswith("repro."))

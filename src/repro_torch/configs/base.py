@@ -207,12 +207,6 @@ UNPORTED = {
     "xlstm-1.3b": "the xLSTM family (mLSTM/sLSTM mixers)",
     "mixtral-8x22b": "the MoE family (nn/moe.py)",
     "phi3.5-moe-42b-a6.6b": "the MoE family (nn/moe.py)",
-    "internvl2-76b": "frames input (embed_mode='frames')",
-    "musicgen-medium": "frames input (embed_mode='frames')",
-    "qwen1.5-110b": "the dense attention configs (qkv bias, parity tests)",
-    "starcoder2-7b": "the dense attention configs (gelu_mlp, parity tests)",
-    "gemma3-27b": "the dense attention configs (sandwich and qk norms, "
-                  "parity tests)",
 }
 
 
@@ -234,7 +228,8 @@ def all_configs() -> dict[str, ModelConfig]:
 def _load_all() -> None:
     # import for registration side effects
     from repro_torch.configs import (  # noqa: F401
-        qwen2_5_14b, recurrentgemma_2b,
+        gemma3_27b, internvl2_76b, musicgen_medium, qwen1_5_110b,
+        qwen2_5_14b, recurrentgemma_2b, starcoder2_7b,
     )
 
 

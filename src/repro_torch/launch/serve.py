@@ -5,7 +5,10 @@ The server reads model weights from the newest checkpoint *snapshot*
 (never blocking the trainer that produces them) and answers batched
 generation requests. On a card the prefill runs the ``lru_scan`` kernel in
 every RG-LRU layer and the ``flash_attention`` kernel in every attention
-layer; decode is plain tensor code.
+layer; decode is plain tensor code. ``Server.generate`` takes token
+prompts only, as the reference's does; a frames model (``embed_mode=
+"frames"``) is driven through ``models.transformer.prefill`` and
+``launch.steps.make_decode_step``.
 
 Usage (reduced config):
     PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
@@ -50,8 +53,15 @@ class Server:
     def generate(self, prompts, max_new: int, *, greedy=True, seed=0):
         """prompts: (B, P) int32 (tokens mode). Returns (B, max_new) int32.
         ``greedy=False`` samples from softmax(logits) with a
-        ``torch.Generator(seed)``: its draws differ from ``jax.random``'s."""
+        ``torch.Generator(seed)``: its draws differ from ``jax.random``'s.
+        Raises ``ValueError`` on a frames model, which has no tokens to
+        feed back."""
         cfg = self.cfg
+        if cfg.embed_mode != "tokens":
+            raise ValueError(
+                f"{cfg.name} takes frames, and Server.generate is "
+                "tokens-only: run models.transformer.prefill on (B, S, D) "
+                "frames and launch.steps.make_decode_step on (B, 1, D) ones")
         dev = self.params.device
         prompts = torch.as_tensor(np.asarray(prompts), device=dev)
         B, P = prompts.shape

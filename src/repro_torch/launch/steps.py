@@ -35,9 +35,10 @@ def _on(x, device) -> torch.Tensor:
 
 
 def loss_fn(model: tf.Transformer, cfg: ModelConfig, batch, use_kernel=None):
-    """Mean cross entropy of ``batch`` ({"inputs", "labels"}: (B, S) token
-    ids, NumPy or tensors) plus the weighted MoE aux loss (0 here).
-    Returns (loss, {"ce", "aux"})."""
+    """Mean cross entropy of ``batch`` plus the weighted MoE aux loss (0
+    here). ``batch``: {"inputs": (B, S) token ids, or (B, S, D) float
+    frames for a frames model (``TokenPipeline(frames_dim=D)``); "labels":
+    (B, S) token ids}, NumPy or tensors. Returns (loss, {"ce", "aux"})."""
     dev = model.device
     inputs = _on(batch["inputs"], dev)
     B, S = inputs.shape[:2]

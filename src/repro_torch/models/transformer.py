@@ -5,8 +5,10 @@ The block *pattern* (the repeating unit of mixer kinds) is an
 in a ``ModuleList`` walked by a Python loop (the reference stacks their
 parameters on a leading axis and scans), then a tail of
 ``num_layers % len(pattern)`` blocks named ``tail{i}``. The port runs the
-attention kinds and ``rglru`` with ``mlp`` feed-forwards; other kinds
-raise.
+attention kinds and ``rglru`` with ``mlp`` feed-forwards, optionally with
+post-block ("sandwich") norms; other kinds raise. Inputs are (B, S) token
+ids or, with ``embed_mode="frames"``, (B, S, D) frames (precomputed
+embeddings; the model then has no ``embed`` table).
 
 A model is built for serving (bf16 frozen weights on a card) or, with
 ``trainable=True``, for training: every parameter in ``cfg.param_dtype``
@@ -14,13 +16,15 @@ A model is built for serving (bf16 frozen weights on a card) or, with
 
 Forward paths, each taking ``use_kernel`` (None: the CUDA kernels on a
 card, the plain versions on the CPU):
-  * ``forward``       — (B, S) tokens -> (B, S, D) hidden (+ aux, 0); the
+  * ``forward``       — (B, S) tokens or (B, S, D) frames -> (B, S, D)
+                        hidden (+ aux, 0); the
                         training body, with ``cfg.remat`` applied to the
                         units (never to the tail blocks, as in the
                         reference, which remats its scanned units only).
   * ``prefill``       — forward + the decode caches filled at the prompt's
                         end.
-  * ``decode_step``   — one token with per-layer caches (KV / recurrent).
+  * ``decode_step``   — one token (or frame) with per-layer caches (KV /
+                        recurrent).
 
 The reference's ``launch/sharding.constrain`` mesh hints have no
 counterpart on one device and are dropped.
@@ -53,12 +57,6 @@ def _check_supported(cfg: ModelConfig) -> None:
     if cfg.ffn == "moe":
         raise NotImplementedError(f"{cfg.name}: MoE feed-forwards are not "
                                   "ported (ROADMAP.md section 2)")
-    if cfg.embed_mode != "tokens":
-        raise NotImplementedError(f"{cfg.name}: frames input is not ported "
-                                  "(ROADMAP.md section 2)")
-    if cfg.sandwich_norm:
-        raise NotImplementedError(f"{cfg.name}: sandwich norms are not "
-                                  "ported (ROADMAP.md section 2)")
 
 
 def _has_ffn(cfg: ModelConfig, kind: str) -> bool:
@@ -67,7 +65,9 @@ def _has_ffn(cfg: ModelConfig, kind: str) -> bool:
 
 # ------------------------------------------------------------------ modules
 class Block(nn.Module):
-    """norm1 -> mixer -> residual, then norm2 -> ffn -> residual."""
+    """norm1 -> mixer -> residual, then norm2 -> ffn -> residual. With
+    ``cfg.sandwich_norm`` the mixer's output passes ``post1`` and the
+    ffn's ``post2`` before their residual adds."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device,
                  trainable: bool = False):
@@ -80,9 +80,13 @@ class Block(nn.Module):
             self.mixer = rec.RGLRU(cfg, device, t)
         else:
             raise ValueError(kind)
+        if cfg.sandwich_norm:
+            self.post1 = Norm(cfg.d_model, cfg.norm, device, t)
         if _has_ffn(cfg, kind):
             self.norm2 = Norm(cfg.d_model, cfg.norm, device, t)
             self.ffn = MLP(cfg, device, t)
+            if cfg.sandwich_norm:
+                self.post2 = Norm(cfg.d_model, cfg.norm, device, t)
 
 
 class Transformer(nn.Module):
@@ -90,7 +94,7 @@ class Transformer(nn.Module):
     :func:`init_params` and ``models/params.py``). ``device="meta"`` gives
     the shapes without memory. ``trainable``: float32 master weights with
     ``requires_grad`` (training), else bf16 frozen weights on a card
-    (serving)."""
+    (serving). A frames model has no ``embed``."""
 
     def __init__(self, cfg: ModelConfig, device, trainable: bool = False):
         super().__init__()
@@ -98,8 +102,9 @@ class Transformer(nn.Module):
         self.cfg = cfg
         t = trainable
         wd = weight_dtype(cfg, device, t)
-        self.embed = param((cfg.vocab_size, cfg.d_model), wd, device,
-                           trainable=t)
+        if cfg.embed_mode == "tokens":
+            self.embed = param((cfg.vocab_size, cfg.d_model), wd, device,
+                               trainable=t)
         self.lm_head = param((cfg.d_model, cfg.vocab_size), wd, device,
                              trainable=t)
         self.final_norm = Norm(cfg.d_model, cfg.norm, device, t)
@@ -112,7 +117,7 @@ class Transformer(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.embed.device
+        return self.lm_head.device
 
     def blocks(self):
         """(block, kind) in layer order."""
@@ -142,10 +147,18 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 # -------------------------------------------------------------- block forward
+def _mixer_residual(p: Block, x, h, cfg: ModelConfig):
+    if cfg.sandwich_norm:
+        h = apply_norm(p.post1, h, cfg.norm)
+    return x + h
+
+
 def _ffn_residual(p: Block, x, cfg: ModelConfig, kind: str):
     if _has_ffn(cfg, kind):
-        h = apply_norm(p.norm2, x, cfg.norm)
-        x = x + mlp(p.ffn, h, cfg)
+        h = mlp(p.ffn, apply_norm(p.norm2, x, cfg.norm), cfg)
+        if cfg.sandwich_norm:
+            h = apply_norm(p.post2, h, cfg.norm)
+        x = x + h
     return x
 
 
@@ -172,12 +185,18 @@ def apply_block(p: Block, x, cfg: ModelConfig, kind: str, positions,
     else:
         h, cache = rec.rglru_forward(p.mixer, h, cfg, use_kernel=use_kernel,
                                      return_state=True)
-    return _ffn_residual(p, x + h, cfg, kind), cache
+    return _ffn_residual(p, _mixer_residual(p, x, h, cfg), cfg, kind), cache
 
 
 def embed_inputs(model: Transformer, cfg: ModelConfig, inputs, positions):
+    """(B, S) token ids through the embedding table, or (B, S, D) frames
+    cast to the compute dtype; then the embedding scale and sinusoidal
+    positions where the config asks for them."""
     dt = compute_dtype(model.device)
-    x = F.embedding(inputs.long(), model.embed).to(dt)
+    if cfg.embed_mode == "tokens":
+        x = F.embedding(inputs.long(), model.embed).to(dt)
+    else:
+        x = inputs.to(dt)
     if cfg.scale_embeddings:
         x = x * embed_scale(cfg.d_model, dt)
     if cfg.pos_emb == "sinusoidal":
@@ -275,8 +294,8 @@ def init_cache(cfg: ModelConfig, batch, capacity, device):
 
 def prefill(model: Transformer, cfg: ModelConfig, inputs, capacity=None,
             use_kernel=None):
-    """Run the full prompt, return (last-position logits (B, 1, V), decode
-    cache)."""
+    """Run the full prompt ((B, S) tokens or (B, S, D) frames), return
+    (last-position logits (B, 1, V), decode cache)."""
     B, S = inputs.shape[:2]
     capacity = capacity or S
     positions = _positions(B, S, model.device)
@@ -313,12 +332,13 @@ def _decode_block(p: Block, c, x, cfg: ModelConfig, kind: str, pos: int):
         h, c = attn.attn_decode(p.mixer, h, cfg, kind, c, pos)
     else:
         h, c = rec.rglru_decode(p.mixer, h, cfg, c)
-    return _ffn_residual(p, x + h, cfg, kind), c
+    return _ffn_residual(p, _mixer_residual(p, x, h, cfg), cfg, kind), c
 
 
 def decode_step(model: Transformer, cfg: ModelConfig, cache, inputs,
                 pos: int):
-    """One decode step. inputs: (B, 1) tokens; pos: int. Returns (logits
+    """One decode step. inputs: (B, 1) tokens or (B, 1, D) frames; pos:
+    int. Returns (logits
     (B, 1, V), new cache). Attention caches are updated in place."""
     B = inputs.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32,

@@ -28,6 +28,7 @@ import contextlib
 import contextvars
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -224,6 +225,22 @@ def mlp(p: MLP, x: torch.Tensor, cfg) -> torch.Tensor:
         return dense(h, p.w2)
     h = act(dense(x, p.w1, getattr(p, "b1", None)))
     return dense(h, p.w2, getattr(p, "b2", None))
+
+
+def sinusoidal_positions(seq_len: int, d_model: int,
+                         offset: int = 0) -> torch.Tensor:
+    """The static (seq_len, d_model) float32 table of positions
+    ``offset .. offset + seq_len - 1``: sines in the even columns, cosines
+    in the odd, computed in float64 by NumPy and rounded once, as the
+    reference's ``sinusoidal_positions`` (which the reference's model never
+    calls either; it uses the dynamic form below)."""
+    pos = np.arange(seq_len)[:, None] + offset
+    dim = np.arange(0, d_model, 2)[None, :]
+    angle = pos / np.power(10_000.0, dim / d_model)
+    out = np.zeros((seq_len, d_model), np.float32)
+    out[:, 0::2] = np.sin(angle)
+    out[:, 1::2] = np.cos(angle)
+    return torch.from_numpy(out)
 
 
 def sinusoidal_positions_dynamic(positions: torch.Tensor,

@@ -487,3 +487,61 @@ def test_chunked_lru_scan_bwd_edges_match_plain(cuda_device):
                 assert (x is None) == (w is None)
                 if w is not None:
                     assert _rel_err(x, w) <= 1e-5 and torch.equal(x, y)
+
+
+def _family_prefill_matches_plain(cuda_device, arch, **overrides):
+    """A reduced-depth, narrow model of ``arch`` with ``overrides`` (a
+    head dim of 64 or 128, so the bf16 attention takes the tensor-core
+    route) on 2 x 256 inputs (tokens or frames): the kernel prefill
+    launches flash_attention once per layer, all on wgmma, and its logits
+    and every cache agree with the plain route's within bf16 rounding (3e-2
+    of each tensor's largest magnitude)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import transformer as tf
+
+    cfg = reduced(get_config(arch), d_model=256, kv_chunk=128, **overrides)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    model = tf.init_params(cfg, gen, cuda_device)
+    rng = np.random.default_rng(0)
+    if cfg.embed_mode == "frames":
+        x = rng.standard_normal((2, 256, cfg.d_model)).astype(np.float32)
+    else:
+        x = rng.integers(0, cfg.vocab_size, (2, 256)).astype(np.int32)
+    x = torch.from_numpy(x).to(cuda_device)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        got = tf.prefill(model, cfg, x)
+    counts, routes = ops.launch_counts(), ops.route_counts()
+    assert counts["flash_attention"] == cfg.num_layers
+    assert routes["flash_attention"]["wgmma"] == cfg.num_layers
+    assert counts["lru_scan"] == 0
+    with torch.inference_mode():
+        want = tf.prefill(model, cfg, x, use_kernel=False)
+    assert _rel_err(got[0], want[0]) <= 3e-2
+    for g, w in zip(tf.layer_caches(cfg, got[1]),
+                    tf.layer_caches(cfg, want[1]), strict=True):
+        for name in w:
+            assert _rel_err(g[name], w[name]) <= 3e-2, name
+    return cfg
+
+
+def test_gqa9_hd128_prefill_matches_plain(cuda_device):
+    """starcoder2's group of 9 query heads per kv head, at hd 128."""
+    _family_prefill_matches_plain(cuda_device, "starcoder2-7b", n_heads=9,
+                                  n_kv_heads=1, head_dim=128)
+
+
+def test_gqa2_windowed_hd128_prefill_matches_plain(cuda_device):
+    """gemma3's local (window 128, two kv tiles) and global layers, one
+    unit and a tail of two, GQA 2 at hd 128, sandwich and qk norms."""
+    cfg = _family_prefill_matches_plain(
+        cuda_device, "gemma3-27b", num_layers=8, n_heads=4, n_kv_heads=2,
+        head_dim=128, local_window=128)
+    assert tuple(cfg.tail_pattern) == ("local", "local")
+
+
+def test_mha_hd64_frames_prefill_matches_plain(cuda_device):
+    """musicgen's multi-head attention at hd 64 on frames."""
+    _family_prefill_matches_plain(cuda_device, "musicgen-medium",
+                                  n_heads=4, n_kv_heads=4, head_dim=64)

@@ -39,7 +39,9 @@ def test_port_has_the_slice_modules():
               "graph.reference", "graph.models", "graph.partition",
               "launch.rpc", "configs.qwen2_5_14b", "train.optimizer",
               "train.loss", "train.data", "train.compression",
-              "launch.train"):
+              "launch.train", "configs.qwen1_5_110b",
+              "configs.starcoder2_7b", "configs.gemma3_27b",
+              "configs.internvl2_76b", "configs.musicgen_medium"):
         assert f"repro_torch.{m}" in mods, m
     for src in ("snapshot_resolve.cu", "segment_sum.cu", "lru_scan.cu",
                 "flash_attention.cu", "flash_attention_bwd.cu"):

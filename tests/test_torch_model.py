@@ -220,8 +220,9 @@ def test_checkpoint_across_packages(slice_, tmp_path):
 def test_chip_smoke_layer_check_catches_planted_faults(monkeypatch):
     """chip_smoke.py's layer-by-layer check, rehearsed on the CPU with the
     plain versions standing in for the CUDA kernels on the kernel route:
-    no layer differs, and the faults it plants in that route (the window
-    dropped, the scan's b one step late) exceed its limits."""
+    no layer differs, and the faults it plants in that route (the causal
+    mask off, the window dropped, the scan's b one step late) exceed its
+    limits."""
     from repro_torch.kernels import ops, ref
 
     path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
@@ -240,6 +241,7 @@ def test_chip_smoke_layer_check_catches_planted_faults(monkeypatch):
     assert len(got["per_layer"]) == cfg.num_layers
     assert max(got["worst"].values()) == 0.0
     assert sorted(got["planted"]) == ["layer0 b one step late",
+                                      "layer2 causal off",
                                       "layer2 window dropped"]
     for errs in got["planted"].values():
         assert errs["out"] > cs.MIXER_RTOL
