@@ -139,6 +139,33 @@ before the result lines:
    first loss within 1 of ln(2048)). The kernels line gains one
    ``flash_attention`` row per attention shape phase 9 launched and a
    ``flash_attention_bwd`` row at musicgen's training shape.
+10. The MoE family at full width, built as phase 9's models are:
+   ``mixtral-8x22b`` (10 of its 56 layers, every one sliding-window
+   attention with the window of 4096 applied) through ``Server.generate``
+   on 1 x 8192 prompt tokens + 32 greedy, and ``phi3.5-moe-42b-a6.6b``
+   (20 of 32) on 2 x 4096 + 32, both on the dense dispatch. Per model:
+   ``flash_attention`` once per layer on ``wgmma``; each layer's mixer
+   kernel vs plain as in phase 9 (mixtral's with the window faults); one
+   MoE layer: routers float32 beside bf16 experts, dropping at capacity
+   8 against dense and 4 groups against one (``MIXER_RTOL``), two
+   dropping calls bit-equal, timed beside its FLOP bound; the whole
+   prefill kernel vs plain by each tensor's norm (``rms_rel_err``) within
+   ``MOE_PREFILL_RTOL``, with the routing flip share (the (token, layer)
+   pairs whose top-k expert sets differ between the routes) reported; a
+   sound route (P rounded once to bf16) within the limit, the control (P
+   kept to 4 bits), attention faults (the causal mask off, the kv heads
+   rolled) and routing faults (top_w not renormalised, the (k+1)-th
+   expert chosen) over it, the router in bf16 reported. Mixtral's prefill
+   again on the dropping dispatch (capacity 1.25, ``sel_w`` left out
+   planted) and a 2048-token dropping prefill on 4 groups. Then
+   phi3.5-moe trains at full width cut to 2 layers, 1 + 2 steps of 2 x
+   2048 Markov tokens, and the next batch's loss must hold a nonzero aux
+   whose gradient reaches every router. The kernels line gains a
+   ``flash_attention`` row per new shape (serving and training) and a
+   ``flash_attention_bwd`` row at phi3.5-moe's training shape.
+   ``python3 chip_smoke.py --only 10`` runs the build and this phase
+   alone; ``--probe`` logs a reading past one of its calibrated limits
+   instead of failing.
 
 Phase 2 also holds the model kernels against their plain versions at the
 slice's shapes: ``lru_scan`` at (8, 4096, 2560) with and without ``h0``,
@@ -256,6 +283,37 @@ SPLIT_DECODE_STEPS = 4              # decode steps taken apart per model
 FAMILY_TRAIN_ARCH = "musicgen-medium"
 FAMILY_TRAIN_WARMUP, FAMILY_TRAIN_STEPS = 1, 2
 FLASH_FAMILY_TRAIN_SHAPE = (TRAIN_BATCH, 24, 24, TRAIN_SEQ, 64)
+# phase 10: the MoE family at full width, each as (arch, layers run on the
+# card, requests, prompt); the bf16 weights of mixtral's 56 layers (281 GB)
+# and phi3.5-moe's 32 (83.7 GB) do not fit 80 GB, so their depth is cut
+MOE_RUNS = (("mixtral-8x22b", 10, 1, 8192),
+            ("phi3.5-moe-42b-a6.6b", 20, 2, 4096))
+MOE_GEN = 32
+# the model whose prefill runs again on the dropping dispatch, at the
+# config's capacity_factor, and on a short prompt with moe_groups groups
+MOE_DROPPING_ARCH = "mixtral-8x22b"
+MOE_CAPACITY, MOE_HIGH_CAPACITY = 1.25, 8.0
+MOE_GROUPS, MOE_GROUPS_PROMPT = 4, 2048
+# the whole prefill, kernel route against plain, rms_rel_err of each
+# tensor: a routing flip (a token whose top-k set differs between the
+# routes, a legitimate bf16 outcome) moves that token's whole FFN output,
+# which the largest-element error of phases 5 and 9 would read as a fault.
+# 1e-1, the limit stated before the first run, failed the kernel and the
+# sound route alike: with random weights the flips spread through
+# attention (12 % and 32 % of (token, layer) pairs on the kernel route).
+# Each limit is phase 9's rule on the readings of an H100
+# (chip_smoke.py --only 10 --probe): the geometric mean of the larger of
+# the kernel's and the sound route's reading and the 4-bit control's, to
+# 3 figures
+MOE_PREFILL_RTOL = {"mixtral-8x22b": 4.52e-1, "phi3.5-moe-42b-a6.6b": 8.56e-1}
+# False (``--probe``): phase 10 logs a reading past one of its calibrated
+# limits instead of failing, to take the readings that set them
+MOE_LIMITS_ENFORCED = True
+# phi3.5-moe trains at full width, cut to 2 layers: 16 bytes a parameter
+# of float32 state (weight, gradient, m, v) take 45.8 GB
+MOE_TRAIN_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ = 2, 2048
+MOE_TRAIN_WARMUP, MOE_TRAIN_STEPS = 1, 2
 
 
 # one-element fills that open each device_ms window (see there)
@@ -1179,6 +1237,21 @@ class planted:
             self.real.launches = self.faulty.launches
 
 
+class swapped:
+    """Within ``with``, attribute ``name`` of ``target`` is ``value``."""
+
+    def __init__(self, target, name: str, value):
+        self.target, self.name, self.value = target, name, value
+
+    def __enter__(self):
+        self.real = getattr(self.target, self.name)
+        setattr(self.target, self.name, self.value)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.target, self.name, self.real)
+
+
 def late_b(args, kw):
     """lru_scan with b_t read one step late."""
     a, b = args[:2]
@@ -1325,7 +1398,7 @@ def check_layers_against_plain(torch, run: dict) -> dict:
                              else "flash_attention", alter):
                     planted_errs[f"layer{i} {name}"] = errors(
                         mixer(block, kind, h, None), plain)
-            x, _ = tf.apply_block(block, x, cfg, kind, positions, False)
+            x, _, _ = tf.apply_block(block, x, cfg, kind, positions, False)
             del h, plain
     sync(torch, model.device.type)
 
@@ -1342,18 +1415,19 @@ def check_layers_against_plain(torch, run: dict) -> dict:
     return {"per_layer": per_layer, "worst": worst, "planted": planted_errs}
 
 
-def prefill_errors(torch, cfg, got, want) -> dict:
-    """max_rel_err of a prefill's last-position logits and of every
-    layer's cache against another prefill's."""
+def prefill_errors(torch, cfg, got, want, metric=max_rel_err) -> dict:
+    """``metric`` (max_rel_err, or rms_rel_err) of a prefill's
+    last-position logits and of every layer's cache against another
+    prefill's."""
     from repro_torch.models import transformer as tf
 
     (g_logits, g_cache), (w_logits, w_cache) = got, want
-    errs = {"logits": max_rel_err(torch, g_logits, w_logits)}
+    errs = {"logits": metric(torch, g_logits, w_logits)}
     for i, (gc, wc) in enumerate(zip(tf.layer_caches(cfg, g_cache),
                                      tf.layer_caches(cfg, w_cache),
                                      strict=True)):
         for name in gc:
-            errs[f"layer{i}.{name}"] = max_rel_err(torch, gc[name], wc[name])
+            errs[f"layer{i}.{name}"] = metric(torch, gc[name], wc[name])
     return errs
 
 
@@ -1412,12 +1486,8 @@ def check_model_against_plain(torch, run: dict, gen: int = MODEL_GEN,
                       f"{planted_errs} (limit {rtol})")
     stand_in = {}
     for name, attend in {**(sound or {}), **(controls or {})}.items():
-        real, ops.flash_attention = ops.flash_attention, attend
-        try:
-            with torch.inference_mode():
-                other = tf.prefill(model, cfg, prompts, capacity)
-        finally:
-            ops.flash_attention = real
+        with swapped(ops, "flash_attention", attend), torch.inference_mode():
+            other = tf.prefill(model, cfg, prompts, capacity)
         stand_in[name] = max(prefill_errors(torch, cfg, other,
                                             plain).values())
         del other
@@ -2415,7 +2485,7 @@ def train_time_split(torch, run: dict) -> dict:
         x = tf.embed_inputs(model, cfg, inputs, pos)
         for unit in model.units:
             for i, kind in enumerate(cfg.pattern):
-                x, _ = tf.apply_block(unit[f"b{i}"], x, cfg, kind, pos)
+                x, _, _ = tf.apply_block(unit[f"b{i}"], x, cfg, kind, pos)
         mark()
         del x
     fwd, loss_s, bwd, opt = (b - a for a, b in zip(marks[:4], marks[1:5],
@@ -2711,15 +2781,16 @@ def family_config(arch: str, layers):
                                                           num_layers=layers)
 
 
-def family_attention_shapes(cfg, requests: int) -> dict:
+def family_attention_shapes(cfg, requests: int,
+                            prompt: int = FAMILY_PROMPT) -> dict:
     """{(B, Hq, Hkv, S, hd, window): layers}: the attention calls a
-    prefill of ``requests`` x FAMILY_PROMPT positions makes, one per
+    prefill of ``requests`` x ``prompt`` positions makes, one per
     attention layer; a window is passed only where the prompt is longer
     than it and a multiple of it (``nn.attention.attn_forward``)."""
     from repro_torch.configs import ATTN_KINDS
     from repro_torch.nn import attention as attn
 
-    S, calls = FAMILY_PROMPT, {}
+    S, calls = prompt, {}
     for kind in list(cfg.pattern) * cfg.num_units + list(cfg.tail_pattern):
         if kind not in ATTN_KINDS:
             continue
@@ -2779,7 +2850,542 @@ def serve_families(torch, rows: list) -> None:
     rows.append(bwd_row)
 
 
-def main() -> int:
+# --------------------------------------------------------------- phase 10
+def limit(cond: bool, msg: str) -> None:
+    """``check`` for phase 10's calibrated limits; with
+    MOE_LIMITS_ENFORCED False (``--probe``) a reading past one is logged
+    and the run goes on."""
+    if MOE_LIMITS_ENFORCED:
+        check(cond, msg)
+    elif not cond:
+        log(f"phase 10 probe, over a limit: {msg}")
+
+
+def rms_rel_err(torch, got, want) -> float:
+    """||got - want|| over ||want||, 2-norms over every element (float64
+    sums): the error of the whole tensor, to which one token's other
+    routing adds only its share of the elements."""
+    g, w = got.float(), want.float()
+    check(bool(torch.isfinite(g).all()) and bool(torch.isfinite(w).all()),
+          "non-finite values in the prefill")
+    num = float(torch.linalg.vector_norm(g - w, dtype=torch.float64))
+    den = float(torch.linalg.vector_norm(w, dtype=torch.float64))
+    return num / max(den, 1e-30)
+
+
+class routing_tap:
+    """Within ``with``, ``sets`` receives the top-k expert set of every
+    token at every call of ``nn.moe._routing``: one (T, k) uint8 tensor of
+    sorted expert ids a call, in call order (a prefill's MoE layers in
+    layer order)."""
+
+    def __enter__(self):
+        from repro_torch.nn import moe
+        self.moe, self.real, self.sets = moe, moe._routing, []
+
+        def tapped(p, x, cfg):
+            out = self.real(p, x, cfg)
+            self.sets.append(out[1].sort(dim=-1).values.byte())
+            return out
+        moe._routing = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._routing = self.real
+
+
+def flip_share(a: list, b: list) -> float:
+    """The share of (token, layer) pairs whose top-k expert sets differ
+    between two taps of the same prefill."""
+    check(len(a) == len(b), f"{len(a)} routing calls against {len(b)}")
+    differ = sum(int((x != y).any(dim=-1).sum())
+                 for x, y in zip(a, b, strict=True))
+    return differ / max(sum(x.shape[0] for x in a), 1)
+
+
+MOE_ROUTING_FAULTS = ("top_w not renormalised", "the (k+1)-th expert chosen",
+                      "router in bf16")
+
+
+def faulty_routing(torch, fault: str):
+    """A stand-in for ``nn.moe._routing`` with one of MOE_ROUTING_FAULTS
+    planted: the top-k probabilities used as they are, not renormalised;
+    each token's k-th expert replaced by its (k+1)-th; the logits taken
+    from x and the router rounded to bf16 (what ``weight_dtype`` would
+    make of the router on a card)."""
+    import torch.nn.functional as F
+
+    from repro_torch.nn import moe
+
+    def routing(p, x, cfg):
+        if fault == "router in bf16":
+            logits = (x.bfloat16() @ p.router.bfloat16()).float()
+        else:
+            logits = x.float() @ p.router
+        probs = torch.softmax(logits, dim=-1)
+        k = cfg.top_k
+        top_w, top_idx = moe._top_k(probs, k + 1)
+        keep = [*range(k - 1), k] if fault == "the (k+1)-th expert chosen" \
+            else list(range(k))
+        top_w, top_idx = top_w[..., keep], top_idx[..., keep]
+        if fault != "top_w not renormalised":
+            top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True),
+                                        min=1e-9)
+        onehot = F.one_hot(top_idx, cfg.n_experts).float()
+        combine = (onehot * top_w[..., None]).sum(dim=1)
+        aux = cfg.n_experts * torch.sum(onehot.sum(dim=1).mean(dim=0)
+                                        * probs.mean(dim=0))
+        return combine, top_idx, top_w, aux
+    return routing
+
+
+def sel_w_left_out(torch):
+    """A stand-in for ``nn.moe.dispatch`` whose selected tokens all weigh
+    1: the dropping path adds every selected token's FFN output unscaled
+    (the zero-weight fillers' too)."""
+    from repro_torch.nn import moe
+
+    real = moe.dispatch
+
+    def dispatch(combine, cfg):
+        sel_w, sel_idx = real(combine, cfg)
+        return torch.ones_like(sel_w), sel_idx
+    return dispatch
+
+
+def moe_prefill_variants(torch, cfg) -> dict:
+    """{name: (group, context factory)} for :func:`check_moe_prefill`:
+    the faults that must exceed the limit (each attention layer with the
+    causal mask off or, GQA, its kv heads rolled; the routing with its
+    top_w not renormalised or its (k+1)-th expert chosen), the finding
+    reported only (the router in bf16: a sound route may move as many
+    tokens across the top-k boundary), the sound route (P rounded once to
+    bf16) that must be within it and the control (P kept to
+    CONTROL_P_BITS bits) that must exceed it."""
+    from repro_torch.kernels import ops
+    from repro_torch.nn import moe
+
+    out = {name: ("fault", lambda a=alter: planted("flash_attention", a))
+           for name, alter in attention_faults(cfg, "attn").items()}
+    for name in MOE_ROUTING_FAULTS:
+        group = "finding" if name == "router in bf16" else "fault"
+        out[name] = (group, lambda n=name: swapped(
+            moe, "_routing", faulty_routing(torch, n)))
+    for bits, group in ((SOUND_P_BITS, "sound"), (CONTROL_P_BITS, "control")):
+        out[f"P to {bits} bits"] = (group, lambda b=bits: swapped(
+            ops, "flash_attention", rounded_p_attention(torch, b)))
+    return out
+
+
+def check_moe_prefill(torch, run: dict, cfg, rtol: float, variants: dict,
+                      prompt=None, gen: int = MOE_GEN) -> dict:
+    """The prefill of the run's prompts (their first ``prompt`` positions,
+    all when None) under ``cfg`` (its ``moe_impl``) through the kernels
+    against the same prefill through the plain versions, both on the card
+    in bf16: every tensor (the last-position logits, each layer's keys and
+    values) within ``rtol`` by :func:`rms_rel_err`; the routing flip share
+    (:func:`flip_share`) and the largest-element error reported beside.
+    Each of ``variants`` ({name: (group, context factory)}) is a prefill
+    through the kernels within its context: a "fault" or "control" must
+    exceed ``rtol``, a "sound" route must stay within it, a "finding" is
+    reported."""
+    from repro_torch.models import transformer as tf
+
+    model = run["model"]
+    device = model.device.type
+    prompts = torch.from_numpy(run["prompts"][:, :prompt]).to(model.device)
+    capacity = prompts.shape[1] + gen
+
+    def prefill(use_kernel=None):
+        with torch.inference_mode(), routing_tap() as tap:
+            t = time.perf_counter()
+            out = tf.prefill(model, cfg, prompts, capacity, use_kernel)
+            sync(torch, device)
+        return out, tap.sets, time.perf_counter() - t
+
+    kernel, kernel_sets, kernel_s = prefill()
+    plain, plain_sets, plain_s = prefill(False)
+    check(tuple(kernel[0].shape) == (prompts.shape[0], 1, cfg.vocab_size),
+          f"logits shape {tuple(kernel[0].shape)}")
+    errs = prefill_errors(torch, cfg, kernel, plain, rms_rel_err)
+    largest = max(prefill_errors(torch, cfg, kernel, plain).values())
+    flips = flip_share(kernel_sets, plain_sets)
+    del kernel, kernel_sets
+    worst = max(errs, key=errs.get)
+    limit(errs[worst] <= rtol,
+          f"{cfg.name} {cfg.moe_impl} kernel prefill vs plain: {worst} "
+          f"rms rel err {errs[worst]} (limit {rtol})")
+    readings = {}
+    for name, (group, context) in variants.items():
+        with context():
+            other, sets, _ = prefill()
+        readings[name] = {
+            "group": group,
+            "rms": max(prefill_errors(torch, cfg, other, plain,
+                                      rms_rel_err).values()),
+            "largest": max(prefill_errors(torch, cfg, other,
+                                          plain).values()),
+            "flips": flip_share(sets, plain_sets)}
+        del other, sets
+    missed = [n for n, r in readings.items()
+              if r["group"] in ("fault", "control") and r["rms"] <= rtol]
+    limit(not missed, f"{cfg.name} {cfg.moe_impl} prefill faults not "
+                      f"caught: {missed} {readings} (limit {rtol})")
+    over = [n for n, r in readings.items()
+            if r["group"] == "sound" and r["rms"] > rtol]
+    limit(not over, f"{cfg.name} {cfg.moe_impl} sound prefill routes over "
+                    f"the limit: {over} {readings} (limit {rtol})")
+    per_layer = [max(v for k, v in errs.items() if k.startswith(f"layer{i}."))
+                 for i in range(cfg.num_layers)]
+    return {"impl": cfg.moe_impl, "prompt": prompts.shape[1],
+            "kernel_prefill_s": kernel_s, "plain_prefill_s": plain_s,
+            "worst": worst, "worst_rms": errs[worst], "largest": largest,
+            "logits_rms": errs["logits"], "per_layer": per_layer,
+            "flips": flips, "limit": rtol, "variants": readings}
+
+
+def check_moe_layer(torch, run: dict) -> dict:
+    """One MoE layer at full width (the first), on its input in the run's
+    prefill (the plain route's hidden state after the first block's mixer,
+    through norm2): every router float32 and every expert weight in the
+    compute dtype in the serving model; dropping at capacity_factor
+    MOE_HIGH_CAPACITY (C = T, nothing dropped) against dense, and with
+    MOE_GROUPS groups against one, within MIXER_RTOL (the reference's two
+    checks); two calls of the dropping dispatch at MOE_CAPACITY bit-equal
+    (index_add's atomics sum at most top_k nonzero terms a row); the share
+    of routed (token, expert) pairs it drops; the share of tokens whose
+    top-k set flips in this one layer when its input comes through the
+    attention kernel instead (the flips of one bf16 step, before any
+    spreads through later layers). On a card the dense and dropping layers
+    are timed too (:func:`time_moe_layer`)."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.nn import attention as attn
+    from repro_torch.nn import moe
+    from repro_torch.nn.layers import apply_norm, compute_dtype
+
+    cfg, model = run["cfg"], run["model"]
+    cdt = compute_dtype(model.device)
+    wrong = [n for n, p in model.named_parameters() if ".ffn." in n
+             and p.dtype != (torch.float32 if n.endswith("router") else cdt)]
+    check(not wrong, f"MoE parameters of the wrong dtype: {wrong[:4]}")
+    prompts = torch.from_numpy(run["prompts"]).to(model.device)
+    B, S = prompts.shape
+    positions = torch.arange(S, dtype=torch.int32, device=model.device)[
+        None].expand(B, S)
+    dense = dataclasses.replace(cfg, moe_impl="dense")
+    drop = dataclasses.replace(cfg, moe_impl="dropping", moe_groups=0,
+                               capacity_factor=MOE_CAPACITY)
+    high = dataclasses.replace(drop, capacity_factor=MOE_HIGH_CAPACITY)
+    grouped = dataclasses.replace(high, moe_groups=MOE_GROUPS)
+    with torch.inference_mode():
+        block, kind = next(model.blocks())
+        x = tf.embed_inputs(model, cfg, prompts, positions)
+
+        def ffn_input(use_kernel):
+            a = attn.attn_forward(block.mixer, apply_norm(
+                block.norm1, x, cfg.norm), cfg, kind, positions,
+                use_kernel=use_kernel)
+            return apply_norm(block.norm2, tf._mixer_residual(
+                block, x, a, cfg), cfg.norm)
+        h = ffn_input(False)
+        p = block.ffn
+        with routing_tap() as tap:
+            moe._routing(p, h.reshape(B * S, -1), cfg)
+            moe._routing(p, ffn_input(None).reshape(B * S, -1), cfg)
+        flips = flip_share(tap.sets[:1], tap.sets[1:])
+        del x
+        y_dense, aux = moe.moe_dense(p, h, dense)
+        y_high, _ = moe.moe_dropping(p, h, high)
+        y_grouped, _ = moe.moe_dropping(p, h, grouped)
+        errs = {"dropping at capacity 8 vs dense": max_rel_err(
+                    torch, y_high, y_dense),
+                f"{MOE_GROUPS} groups vs one at capacity 8": max_rel_err(
+                    torch, y_grouped, y_high)}
+        del y_dense, y_high, y_grouped
+        first, _ = moe.moe_dropping(p, h, drop)
+        second, _ = moe.moe_dropping(p, h, drop)
+        bit_equal = bool(torch.equal(first, second))
+        del first, second
+        sel_w, _ = moe.dispatch(moe._routing(p, h.reshape(B * S, -1),
+                                             drop)[0], drop)
+        slots = sel_w.numel()
+        dropped = 1 - int((sel_w > 0).sum()) / (B * S * cfg.top_k)
+        del sel_w
+        timed = (time_moe_layer(torch, p, h, {"dense": (dense, B * S * cfg
+                                                        .n_experts),
+                                              "dropping": (drop, slots)})
+                 if model.device.type == "cuda" else None)
+    check(bit_equal, "moe_dropping: two identical calls differ")
+    over = {n: e for n, e in errs.items() if e > MIXER_RTOL}
+    check(not over, f"MoE layer checks over {MIXER_RTOL}: {over}")
+    return {"errs": errs, "bit_equal": bit_equal, "aux": float(aux),
+            "dropped_share": dropped, "layer_flips": flips, "timed": timed}
+
+
+def time_moe_layer(torch, p, h, impls: dict) -> dict:
+    """Each of ``impls`` ({name: (cfg, slots)}) on MoE layer ``p`` and
+    input ``h``, timed on the card: CUDA events (:func:`cuda_ms`) and the
+    device time of 3 calls under torch.profiler (:func:`busy_split`),
+    beside its bound: 2 x 3 x D x F operations per (token, expert) slot
+    on the bf16 tensor cores, or the expert weights and the tokens in and
+    out read once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.nn import moe
+
+    E, D, F = p.w1.shape
+    T = h.shape[0] * h.shape[1]
+    out = {}
+    for name, (cfg, slots) in impls.items():
+        def call(cfg=cfg):
+            return moe.moe_forward(p, h, cfg)
+        ms = cuda_ms(torch, call, reps=5, warmup=1)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        b_ms, b_by = bound(2 * (3 * E * D * F + 2 * T * D),
+                           2 * 3 * D * F * slots, BF16_TC_OPS_PER_S)
+        out[name] = {"ms": ms, "device_ms": busy_split(prof, wall, per=3)[
+            "device_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "slots": slots}
+    return out
+
+
+def serve_moe(torch, arch: str, layers: int, requests: int,
+              prompt: int) -> dict:
+    """Phase 10 for one model: ``arch`` at full width, ``layers`` deep, on
+    the dense dispatch, served on ``requests`` prompts of ``prompt`` tokens
+    and MOE_GEN greedy steps (:func:`serve_model`); each layer's mixer
+    kernel vs plain (:func:`check_layers_against_plain`, with the window's
+    faults on a windowed model); :func:`check_moe_layer`; the whole prefill
+    kernel vs plain (:func:`check_moe_prefill`) with
+    :func:`moe_prefill_variants`; on MOE_DROPPING_ARCH the same on the
+    dropping dispatch at MOE_CAPACITY, with ``sel_w`` left out as its
+    planted fault, and a prefill of MOE_GROUPS_PROMPT tokens on MOE_GROUPS
+    groups; the time split; the decode step's bound. The model is freed
+    before it returns."""
+    import dataclasses
+    import gc
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.nn import moe
+
+    full_layers = family_config(arch, None).num_layers
+    cfg = family_config(arch, layers)
+    torch.cuda.reset_peak_memory_stats()
+    run = serve_model(torch, cfg, requests=requests, prompt=prompt,
+                      gen=MOE_GEN)
+    rtol = MOE_PREFILL_RTOL[arch]
+    t = time.perf_counter()
+    layer_check = check_layers_against_plain(torch, run)
+    moe_layer = check_moe_layer(torch, run)
+    layer_s = time.perf_counter() - t
+    t = time.perf_counter()
+    prefills = [check_moe_prefill(torch, run, cfg, rtol,
+                                  moe_prefill_variants(torch, cfg))]
+    grouped = None
+    if arch == MOE_DROPPING_ARCH:
+        drop = dataclasses.replace(cfg, moe_impl="dropping",
+                                   capacity_factor=MOE_CAPACITY)
+        prefills.append(check_moe_prefill(
+            torch, run, drop, rtol, {"sel_w left out": ("fault", lambda: (
+                swapped(moe, "dispatch", sel_w_left_out(torch))))}))
+        few = torch.from_numpy(run["prompts"][:, :MOE_GROUPS_PROMPT]).to(
+            run["model"].device)
+        with torch.inference_mode():
+            s = time.perf_counter()
+            logits, _ = tf.prefill(run["model"], dataclasses.replace(
+                drop, moe_groups=MOE_GROUPS), few)
+            torch.cuda.synchronize()
+            grouped = {"prompt": few.shape[1], "groups": MOE_GROUPS,
+                       "prefill_s": time.perf_counter() - s}
+        check(tuple(logits.shape) == (requests, 1, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"grouped dropping prefill logits {tuple(logits.shape)}")
+        del logits, few
+    prefill_s = time.perf_counter() - t
+    split = serve_time_split(torch, run)
+    bound = decode_bound(run["model"], cfg, requests, prompt, MOE_GEN)
+    tm = run["timings"]
+    out = {"arch": arch, "layers": cfg.num_layers, "full_layers": full_layers,
+           "params": run["params"], "init_s": run["init_s"],
+           "requests": requests, "prompt": prompt,
+           "prefill_s": tm["prefill_s"],
+           "decode_ms": tm["decode_s"] * 1e3 / MOE_GEN,
+           "decode_tokens_per_s": requests * MOE_GEN / tm["decode_s"],
+           "decode_bound": bound, "generate_peak_gib": run["peak_gib"],
+           "counts": {k: v for k, v in run["counts"].items() if v},
+           "routes": run["routes"], "shapes": run["shapes"],
+           "out_head": run["out"][0, :8].tolist(),
+           "layers_worst": layer_check["worst"]["out"],
+           "layers_planted": {n: e["out"] for n, e in
+                              layer_check["planted"].items()},
+           "moe_layer": moe_layer, "layer_check_s": layer_s,
+           "prefills": prefills, "grouped": grouped,
+           "prefill_check_s": prefill_s, "split": split}
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def log_moe(m: dict, wall_s: float) -> None:
+    bound, layer = m["decode_bound"], m["moe_layer"]
+    log(f"phase 10 {m['arch']}: {m['layers']} layers (reduced: num_layers "
+        f"{m['full_layers']} -> {m['layers']}), {m['params']} parameters "
+        f"built in {m['init_s']:.3f} s; {m['requests']} x {m['prompt']} "
+        f"prompt + {MOE_GEN} decode steps: prefill {m['prefill_s']:.3f} s, "
+        f"decode {m['decode_ms']:.3f} ms per step "
+        f"({m['decode_tokens_per_s']:.1f} tokens/s) against a bound of "
+        f"{bound['bound_ms']:.3f} ms ({bound['weight_bytes']} weight bytes "
+        f"+ {bound['cache_bytes']:.0f} cache bytes a step at 3.35 TB/s); "
+        f"peak device memory {m['generate_peak_gib']:.3f} GiB in generate, "
+        f"{m['peak_gib']:.3f} GiB in the phase; launches {m['counts']}, "
+        f"flash_attention routes {m['routes']}, by (B, Hq, Hkv, S, hd, "
+        f"window) {m['shapes']}; first tokens {m['out_head']}")
+    log(f"phase 10 {m['arch']} layer by layer, kernel vs plain mixer: worst "
+        f"{m['layers_worst']:.3e} (limit {MIXER_RTOL}); planted "
+        f"{json.dumps(m['layers_planted'])}; MoE layer 0: "
+        f"{json.dumps(layer)}; {m['layer_check_s']:.3f} s")
+    for agree in m["prefills"]:
+        log(f"phase 10 {m['arch']} {agree['impl']} prefill kernel "
+            f"{agree['kernel_prefill_s']:.3f} s vs plain "
+            f"{agree['plain_prefill_s']:.3f} s: worst {agree['worst']} rms "
+            f"rel err {agree['worst_rms']:.3e} (limit {agree['limit']}), "
+            f"logits {agree['logits_rms']:.3e}, largest-element "
+            f"{agree['largest']:.3e}; routing flip share "
+            f"{agree['flips']:.3e}; per-layer cache rms rel err "
+            + " ".join(f"{x:.2e}" for x in agree["per_layer"])
+            + f"; variants {json.dumps(agree['variants'])}")
+    log(f"phase 10 {m['arch']} grouped dropping prefill "
+        f"{json.dumps(m['grouped'])}; checks {m['prefill_check_s']:.3f} s; "
+        "time split "
+        f"{json.dumps(m['split'])}; model {wall_s:.3f} s")
+
+
+def check_aux_gradients(torch, cfg, model, batch) -> dict:
+    """The training loss of ``model`` on ``batch`` holds a nonzero MoE aux
+    (the loss is the cross entropy plus AUX_LOSS_WEIGHT times it), whose
+    gradient reaches every layer's router, finite and nonzero."""
+    import math
+
+    from repro_torch.launch import steps
+
+    loss, metrics = steps.loss_fn(model, cfg, batch)
+    routers = [b.ffn.router for b, _ in model.blocks()]
+    grads = torch.autograd.grad(metrics["aux"], routers)
+    aux, ce = float(metrics["aux"].detach()), float(metrics["ce"].detach())
+    total = float(loss.detach())
+    norms = [float(g.abs().max()) for g in grads]
+    check(aux > 0 and math.isclose(total, ce + steps.AUX_LOSS_WEIGHT * aux,
+                                   rel_tol=1e-5),
+          f"loss {total}, ce {ce}, aux {aux}")
+    check(len(norms) == cfg.num_layers
+          and all(math.isfinite(n) and n > 0 for n in norms),
+          f"aux gradient into the routers: largest |d aux / d router| "
+          f"{norms}")
+    return {"loss": total, "ce": ce, "aux": aux, "router_grad_max": norms}
+
+
+def train_moe(torch) -> dict:
+    """Phase 10's training: ``launch.train.run`` on MOE_TRAIN_ARCH at full
+    width, MOE_TRAIN_LAYERS deep, MOE_TRAIN_WARMUP + MOE_TRAIN_STEPS steps
+    of TRAIN_BATCH x MOE_TRAIN_SEQ Markov tokens (:func:`train_model`);
+    then :func:`check_aux_gradients` on the next batch. Returns the run's
+    launch counts."""
+    import gc
+
+    from repro_torch.launch import steps
+
+    cfg = family_config(MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS)
+    t = time.perf_counter()
+    run = train_model(torch, cfg, seq=MOE_TRAIN_SEQ, warmup=MOE_TRAIN_WARMUP,
+                      steps=MOE_TRAIN_STEPS)
+    aux = check_aux_gradients(torch, cfg, run["state"]["params"],
+                              training_batch(
+                                  cfg, MOE_TRAIN_WARMUP + MOE_TRAIN_STEPS,
+                                  TRAIN_BATCH, MOE_TRAIN_SEQ))
+    launches = run["counts"]
+    full = family_config(MOE_TRAIN_ARCH, None).num_layers
+    log(f"phase 10 train {cfg.name}: {run['params']} parameters "
+        f"({MOE_TRAIN_LAYERS} of {full} layers), {MOE_TRAIN_WARMUP} + "
+        f"{MOE_TRAIN_STEPS} steps of "
+        f"{TRAIN_BATCH} x {MOE_TRAIN_SEQ} tokens: losses "
+        + " ".join(f"{x:.4f}" for x in run["losses"])
+        + "; step s " + " ".join(f"{x:.3f}" for x in run["times"])
+        + f"; median timed step {run['step_s']:.3f} s, "
+        f"{run['tokens_per_s']:.1f} tokens/s; peak device memory "
+        f"{run['peak_gib']:.3f} GiB; launches "
+        f"{ {k: v for k, v in launches.items() if v} } (per step "
+        f"{launches_per_step(cfg)}), flash_attention routes {run['routes']}"
+        f", flash_attention_bwd routes {run['bwd_routes']}; next batch: "
+        f"loss {aux['loss']:.4f} = ce {aux['ce']:.4f} + "
+        f"{steps.AUX_LOSS_WEIGHT} x aux {aux['aux']:.4f}, largest |d aux / "
+        "d router| per layer "
+        + " ".join(f"{n:.3e}" for n in aux["router_grad_max"])
+        + f"; {time.perf_counter() - t:.3f} s")
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_moe_family(torch, rows: list) -> None:
+    """Phase 10. First a ``flash_attention`` row at every attention shape
+    the MOE_RUNS will launch and at MOE_TRAIN_ARCH's training shape, and a
+    ``flash_attention_bwd`` row there, on a card that holds no model yet;
+    then each model through :func:`serve_moe`, whose tally of attention
+    calls must equal :func:`family_attention_shapes` (mixtral's every
+    layer with its window of 4096) and whose ``flash_attention`` launch
+    count must equal its total, and :func:`train_moe`. The rows, with the
+    launches of those runs, are appended to ``rows``."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 10)
+    expected = {arch: family_attention_shapes(family_config(arch, layers),
+                                              requests, prompt)
+                for arch, layers, requests, prompt in MOE_RUNS}
+    by_shape: dict = {}
+    for arch, calls in expected.items():
+        for key in calls:
+            B, Hq, Hkv, S, hd, window = key
+            by_shape[key] = flash_attention_case(
+                torch, g, (B, Hq, Hkv, S, hd), torch.bfloat16, window, 1e-2)
+            by_shape[key].update(launches=0, models=[arch])
+    cfg = family_config(MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS)
+    shape = (TRAIN_BATCH, cfg.n_heads, cfg.n_kv_heads, MOE_TRAIN_SEQ,
+             cfg.resolved_head_dim)
+    train_row = flash_attention_case(torch, g, shape, torch.bfloat16, None,
+                                     1e-2)
+    bwd_row = flash_attention_bwd_case(torch, g, shape, torch.bfloat16,
+                                       None, BWD_RTOL_BF16)
+    for arch, layers, requests, prompt in MOE_RUNS:
+        t = time.perf_counter()
+        m = serve_moe(torch, arch, layers, requests, prompt)
+        check(m["shapes"] == expected[arch],
+              f"{arch}: attention calls {m['shapes']}, expected "
+              f"{expected[arch]}")
+        check(m["counts"].get("flash_attention") == sum(
+            expected[arch].values()), f"{arch}: flash_attention launched "
+              f"{m['counts']}, expected {sum(expected[arch].values())}")
+        for key, n in expected[arch].items():
+            by_shape[key]["launches"] += n
+        log_moe(m, time.perf_counter() - t)
+    launches = train_moe(torch)
+    train_row["launches"] = launches["flash_attention"]
+    bwd_row["launches"] = launches["flash_attention_bwd"]
+    rows.extend(by_shape.values())
+    rows.extend([train_row, bwd_row])
+
+
+def main(only: str | None = None) -> int:
+    """Every phase, or with ``only="10"`` the build (phase 1) and phase 10
+    alone: its lines, then a last line naming the phases run."""
     root = pathlib.Path(__file__).resolve().parent
     if not (root / "src" / "repro_torch" / "csrc").is_dir():
         raise SmokeFailure("src/repro_torch not found beside chip_smoke.py")
@@ -2805,6 +3411,17 @@ def main() -> int:
         f"(nvcc {_lib.build_seconds})")
     log(f"phase 1 ptxas (no spills) and SASS (HGMMA): "
         f"{json.dumps(check_kernel_build())}")
+    if only == "10":
+        rows: list = []
+        t = time.perf_counter()
+        serve_moe_family(torch, rows)
+        log(f"phase 10 the MoE family: {time.perf_counter() - t:.3f} s")
+        print(card, flush=True)
+        print(json.dumps({"kernels": rows}), flush=True)
+        print(json.dumps({"ok": True, "phases": [1, 10], "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     t = time.perf_counter()
     # rows: each kernel at the shape its main path runs; extra: the other
@@ -3014,6 +3631,9 @@ def main() -> int:
     serve_families(torch, rows)
     log(f"phase 9 the dense-attention and frames families: "
         f"{time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    serve_moe_family(torch, rows)
+    log(f"phase 10 the MoE family: {time.perf_counter() - t:.3f} s")
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"
                     or m.startswith("repro."))
@@ -3029,8 +3649,19 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch "
+                                             "port on one CUDA card.")
+    ap.add_argument("--only", choices=["10"], default=None,
+                    help="run the build and this phase alone")
+    ap.add_argument("--probe", action="store_true",
+                    help="phase 10 logs readings past its calibrated "
+                         "limits instead of failing")
+    args = ap.parse_args()
+    MOE_LIMITS_ENFORCED = not args.probe
     try:
-        sys.exit(main())
+        sys.exit(main(args.only))
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr, flush=True)
         sys.exit(1)

@@ -205,8 +205,6 @@ def register(cfg: ModelConfig) -> ModelConfig:
 # item (section 2) each waits for
 UNPORTED = {
     "xlstm-1.3b": "the xLSTM family (mLSTM/sLSTM mixers)",
-    "mixtral-8x22b": "the MoE family (nn/moe.py)",
-    "phi3.5-moe-42b-a6.6b": "the MoE family (nn/moe.py)",
 }
 
 
@@ -228,8 +226,9 @@ def all_configs() -> dict[str, ModelConfig]:
 def _load_all() -> None:
     # import for registration side effects
     from repro_torch.configs import (  # noqa: F401
-        gemma3_27b, internvl2_76b, musicgen_medium, qwen1_5_110b,
-        qwen2_5_14b, recurrentgemma_2b, starcoder2_7b,
+        gemma3_27b, internvl2_76b, mixtral_8x22b, musicgen_medium,
+        phi3_5_moe, qwen1_5_110b, qwen2_5_14b, recurrentgemma_2b,
+        starcoder2_7b,
     )
 
 

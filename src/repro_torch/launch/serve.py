@@ -5,10 +5,10 @@ The server reads model weights from the newest checkpoint *snapshot*
 (never blocking the trainer that produces them) and answers batched
 generation requests. On a card the prefill runs the ``lru_scan`` kernel in
 every RG-LRU layer and the ``flash_attention`` kernel in every attention
-layer; decode is plain tensor code. ``Server.generate`` takes token
-prompts only, as the reference's does; a frames model (``embed_mode=
-"frames"``) is driven through ``models.transformer.prefill`` and
-``launch.steps.make_decode_step``.
+layer; MoE feed-forwards (``nn/moe.py``) and decode are plain tensor code.
+``Server.generate`` takes token prompts only, as the reference's does; a
+frames model (``embed_mode="frames"``) is driven through
+``models.transformer.prefill`` and ``launch.steps.make_decode_step``.
 
 Usage (reduced config):
     PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
@@ -22,7 +22,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import all_configs, get_config, reduced
 from repro_torch.device import resolve_device, to_host
 from repro_torch.launch.steps import make_decode_step, reference_state_like
 from repro_torch.models import params as mp
@@ -109,7 +109,8 @@ class Server:
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="recurrentgemma-2b")
+    ap.add_argument("--arch", default="recurrentgemma-2b",
+                    choices=sorted(all_configs()))
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=8)

@@ -35,10 +35,11 @@ def _on(x, device) -> torch.Tensor:
 
 
 def loss_fn(model: tf.Transformer, cfg: ModelConfig, batch, use_kernel=None):
-    """Mean cross entropy of ``batch`` plus the weighted MoE aux loss (0
-    here). ``batch``: {"inputs": (B, S) token ids, or (B, S, D) float
-    frames for a frames model (``TokenPipeline(frames_dim=D)``); "labels":
-    (B, S) token ids}, NumPy or tensors. Returns (loss, {"ce", "aux"})."""
+    """Mean cross entropy of ``batch`` plus ``AUX_LOSS_WEIGHT`` times the
+    MoE load-balancing loss (0 for a model without MoE). ``batch``:
+    {"inputs": (B, S) token ids, or (B, S, D) float frames for a frames
+    model (``TokenPipeline(frames_dim=D)``); "labels": (B, S) token ids},
+    NumPy or tensors. Returns (loss, {"ce", "aux"})."""
     dev = model.device
     inputs = _on(batch["inputs"], dev)
     B, S = inputs.shape[:2]
@@ -81,6 +82,8 @@ def make_train_step(cfg: ModelConfig, oc: OptConfig | None = None):
                     if p.grad is not None:
                         p.grad.div_(mb)
             loss = loss_sum / mb
+            # the reference's metrics here: "ce" is the mean of the splits'
+            # whole losses (the aux term included), "aux" 0
             metrics = {"ce": loss, "aux": torch.zeros_like(loss)}
         gnorm = adamw_update(oc, model, state["opt"])
         model.zero_grad(set_to_none=True)

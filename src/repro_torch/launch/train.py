@@ -19,6 +19,11 @@ by autograd.
 Usage (reduced config; ``--device cpu`` runs on the host):
     PYTHONPATH=src python -m repro_torch.launch.train --device cuda \\
         --arch qwen2.5-14b --steps 50 --batch 8 --seq 64 --fail-at 23
+
+``--full-size`` trains the full config; one whose float32 training state
+does not fit the card is refused with the depth that would fit, to be cut
+with ``dataclasses.replace(cfg, num_layers=N)`` and trained through
+:func:`run` (as ``chip_smoke.py`` phase 10 trains phi3.5-moe).
 """
 from __future__ import annotations
 
@@ -168,9 +173,45 @@ def run(cfg, *, steps, batch, seq, ckpt_dir, ckpt_every=10, fail_at=None,
     return losses, state_box["state"]
 
 
+# bytes of training state per parameter: the float32 master weight, its
+# gradient and AdamW's m and v
+STATE_BYTES_PER_PARAM = 16
+
+
+def depth_that_fits(cfg, memory_bytes: int, share: float = 0.75) -> int:
+    """The most layers of ``cfg`` (its pattern's first kind, at full width)
+    whose training state takes at most ``share`` of ``memory_bytes``, the
+    rest left to activations; 0 when not even the embeddings fit."""
+    kinds = list(cfg.pattern) * cfg.num_units + list(cfg.tail_pattern)
+    base = cfg.param_count() - sum(cfg._block_params(k) for k in kinds)
+    per_layer = cfg._block_params(cfg.pattern[0])
+    room = share * memory_bytes / STATE_BYTES_PER_PARAM - base
+    return max(0, int(room // per_layer))
+
+
+def check_fits(cfg, device) -> None:
+    """Refuse (SystemExit) a config whose training state, 16 bytes a
+    parameter, exceeds the card's memory, naming the depth that fits."""
+    if device.type != "cuda":
+        return
+    total = torch.cuda.get_device_properties(device).total_memory
+    need = STATE_BYTES_PER_PARAM * cfg.param_count()
+    if need <= total:
+        return
+    raise SystemExit(
+        f"{cfg.name} at full size needs {need / 2**30:.1f} GiB of float32 "
+        f"weights, gradients and AdamW moments, more than the card's "
+        f"{total / 2**30:.1f} GiB: cut its depth to "
+        f"{depth_that_fits(cfg, total)} of its {cfg.num_layers} layers, "
+        "which keeps a quarter of the card for activations "
+        "(dataclasses.replace(cfg, num_layers=N), trained through "
+        "repro_torch.launch.train.run)")
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2.5-14b")
+    ap.add_argument("--arch", default="qwen2.5-14b",
+                    choices=sorted(all_configs()))
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
@@ -194,6 +235,7 @@ def main():
     cfg = all_configs()[args.arch]
     if not args.full_size:
         cfg = reduced(cfg)
+    check_fits(cfg, device)
     print(f"training {cfg.name}: {cfg.param_count():,} params, "
           f"{args.steps} steps of {args.batch}x{args.seq} on {device}")
     t0 = time.time()

@@ -5,19 +5,20 @@ The block *pattern* (the repeating unit of mixer kinds) is an
 in a ``ModuleList`` walked by a Python loop (the reference stacks their
 parameters on a leading axis and scans), then a tail of
 ``num_layers % len(pattern)`` blocks named ``tail{i}``. The port runs the
-attention kinds and ``rglru`` with ``mlp`` feed-forwards, optionally with
-post-block ("sandwich") norms; other kinds raise. Inputs are (B, S) token
-ids or, with ``embed_mode="frames"``, (B, S, D) frames (precomputed
-embeddings; the model then has no ``embed`` table).
+attention kinds and ``rglru`` with ``mlp`` or MoE (``nn/moe.py``)
+feed-forwards, optionally with post-block ("sandwich") norms; other kinds
+raise. Inputs are (B, S) token ids or, with ``embed_mode="frames"``, (B, S,
+D) frames (precomputed embeddings; the model then has no ``embed`` table).
 
-A model is built for serving (bf16 frozen weights on a card) or, with
+A model is built for serving (bf16 frozen weights on a card, but for the
+float32 norm scales, biases and MoE routers) or, with
 ``trainable=True``, for training: every parameter in ``cfg.param_dtype``
 (float32 master weights) with ``requires_grad``.
 
 Forward paths, each taking ``use_kernel`` (None: the CUDA kernels on a
 card, the plain versions on the CPU):
   * ``forward``       — (B, S) tokens or (B, S, D) frames -> (B, S, D)
-                        hidden (+ aux, 0); the
+                        hidden (+ the MoE aux loss); the
                         training body, with ``cfg.remat`` applied to the
                         units (never to the tail blocks, as in the
                         reference, which remats its scanned units only).
@@ -39,6 +40,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ATTN_KINDS, ModelConfig
 from repro_torch.nn import attention as attn
+from repro_torch.nn import moe as moe_mod
 from repro_torch.nn import recurrent as rec
 from repro_torch.nn.layers import (MLP, Norm, apply_norm,
                                    bf16_backward_enabled, bf16_backward_scope,
@@ -54,9 +56,6 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: mixer kinds {bad} are not ported (ROADMAP.md "
             "section 2, the xLSTM family)")
-    if cfg.ffn == "moe":
-        raise NotImplementedError(f"{cfg.name}: MoE feed-forwards are not "
-                                  "ported (ROADMAP.md section 2)")
 
 
 def _has_ffn(cfg: ModelConfig, kind: str) -> bool:
@@ -84,7 +83,8 @@ class Block(nn.Module):
             self.post1 = Norm(cfg.d_model, cfg.norm, device, t)
         if _has_ffn(cfg, kind):
             self.norm2 = Norm(cfg.d_model, cfg.norm, device, t)
-            self.ffn = MLP(cfg, device, t)
+            self.ffn = (moe_mod.MoE(cfg, device, t) if cfg.ffn == "moe"
+                        else MLP(cfg, device, t))
             if cfg.sandwich_norm:
                 self.post2 = Norm(cfg.d_model, cfg.norm, device, t)
 
@@ -130,7 +130,7 @@ class Transformer(nn.Module):
 
 # weights the reference initialises from N(0, 0.02); the rest are constants
 _RANDOM = {"embed", "lm_head", "wq", "wk", "wv", "wo", "in_x", "in_gate",
-           "w", "w_ig", "w_rg", "out", "w1", "w2", "w3"}
+           "w", "w_ig", "w_rg", "out", "w1", "w2", "w3", "router"}
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -154,20 +154,35 @@ def _mixer_residual(p: Block, x, h, cfg: ModelConfig):
 
 
 def _ffn_residual(p: Block, x, cfg: ModelConfig, kind: str):
+    """norm2 -> ffn -> residual: (x, the MoE aux loss, or None for a block
+    without an MoE feed-forward)."""
+    aux = None
     if _has_ffn(cfg, kind):
-        h = mlp(p.ffn, apply_norm(p.norm2, x, cfg.norm), cfg)
+        h = apply_norm(p.norm2, x, cfg.norm)
+        if cfg.ffn == "moe":
+            h, aux = moe_mod.moe_forward(p.ffn, h, cfg)
+        else:
+            h = mlp(p.ffn, h, cfg)
         if cfg.sandwich_norm:
             h = apply_norm(p.post2, h, cfg.norm)
         x = x + h
-    return x
+    return x, aux
+
+
+def _add_aux(total, aux):
+    """A running sum of block aux losses, None where no block gave one."""
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
 
 
 def apply_block(p: Block, x, cfg: ModelConfig, kind: str, positions,
                 use_kernel=None, capacity=None):
-    """One layer: (B, S, D) -> ((B, S, D), cache). With ``capacity`` the
-    cache is the block's decode cache at the prompt's end (attention caches
-    padded to ``capacity``), else None; the reference's ``_apply_block``
-    and ``_prefill_block`` in one."""
+    """One layer: (B, S, D) -> ((B, S, D), cache, aux). With ``capacity``
+    the cache is the block's decode cache at the prompt's end (attention
+    caches padded to ``capacity``), else None; aux is the block's MoE
+    load-balancing loss, None without one. The reference's
+    ``_apply_block`` and ``_prefill_block`` in one."""
     h = apply_norm(p.norm1, x, cfg.norm)
     cache = None
     if kind in ATTN_KINDS:
@@ -185,7 +200,8 @@ def apply_block(p: Block, x, cfg: ModelConfig, kind: str, positions,
     else:
         h, cache = rec.rglru_forward(p.mixer, h, cfg, use_kernel=use_kernel,
                                      return_state=True)
-    return _ffn_residual(p, _mixer_residual(p, x, h, cfg), cfg, kind), cache
+    x, aux = _ffn_residual(p, _mixer_residual(p, x, h, cfg), cfg, kind)
+    return x, cache, aux
 
 
 def embed_inputs(model: Transformer, cfg: ModelConfig, inputs, positions):
@@ -232,8 +248,9 @@ def _remat_kwargs(cfg: ModelConfig) -> dict:
 
 def forward(model: Transformer, cfg: ModelConfig, inputs, positions,
             use_kernel=None):
-    """Body -> (hidden (B, S, D), aux). aux is the MoE load-balancing mean
-    in the reference; with no MoE here it is 0. With grad enabled and
+    """Body -> (hidden (B, S, D), aux). aux is the MoE load-balancing loss
+    summed over the blocks and divided by the number of blocks with a
+    feed-forward (the reference's mean); 0 without MoE. With grad enabled and
     ``cfg.remat`` "full" each unit runs under ``torch.utils.checkpoint``
     (its activations are recomputed in the backward; "dots" keeps the
     matrix products' outputs); "none", the tail blocks and a forward
@@ -244,23 +261,32 @@ def forward(model: Transformer, cfg: ModelConfig, inputs, positions,
 
     def unit_step(x, unit):
         # the recompute runs in the backward, outside the caller's scope
+        aux = None
         with bf16_backward_scope(bwd16):
             for i, kind in enumerate(cfg.pattern):
-                x, _ = apply_block(unit[f"b{i}"], x, cfg, kind, positions,
-                                   use_kernel)
-        return x
+                x, _, a = apply_block(unit[f"b{i}"], x, cfg, kind, positions,
+                                      use_kernel)
+                aux = _add_aux(aux, a)
+        return x, aux
 
+    total = None
     for unit in model.units:
         if remat:
-            x = checkpoint(unit_step, x, unit, use_reentrant=False,
-                           **_remat_kwargs(cfg))
+            x, a = checkpoint(unit_step, x, unit, use_reentrant=False,
+                              **_remat_kwargs(cfg))
         else:
-            x = unit_step(x, unit)
+            x, a = unit_step(x, unit)
+        total = _add_aux(total, a)
     for i, kind in enumerate(cfg.tail_pattern):
-        x, _ = apply_block(getattr(model, f"tail{i}"), x, cfg, kind,
-                           positions, use_kernel)
+        x, _, a = apply_block(getattr(model, f"tail{i}"), x, cfg, kind,
+                              positions, use_kernel)
+        total = _add_aux(total, a)
     x = apply_norm(model.final_norm, x, cfg.norm)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    if total is None:
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    n_ffn = sum(_has_ffn(cfg, k) for k in
+                list(cfg.pattern) * cfg.num_units + list(cfg.tail_pattern))
+    return x, total / max(n_ffn, 1)
 
 
 def logits_fn(model: Transformer, cfg: ModelConfig, hidden):
@@ -302,8 +328,8 @@ def prefill(model: Transformer, cfg: ModelConfig, inputs, capacity=None,
     x = embed_inputs(model, cfg, inputs, positions)
     caches = []
     for block, kind in model.blocks():
-        x, c = apply_block(block, x, cfg, kind, positions, use_kernel,
-                           capacity)
+        x, c, _ = apply_block(block, x, cfg, kind, positions, use_kernel,
+                              capacity)
         caches.append(c)
     x = apply_norm(model.final_norm, x, cfg.norm)
     return logits_fn(model, cfg, x[:, -1:]), _nest(cfg, caches)
@@ -332,7 +358,8 @@ def _decode_block(p: Block, c, x, cfg: ModelConfig, kind: str, pos: int):
         h, c = attn.attn_decode(p.mixer, h, cfg, kind, c, pos)
     else:
         h, c = rec.rglru_decode(p.mixer, h, cfg, c)
-    return _ffn_residual(p, _mixer_residual(p, x, h, cfg), cfg, kind), c
+    x, _ = _ffn_residual(p, _mixer_residual(p, x, h, cfg), cfg, kind)
+    return x, c
 
 
 def decode_step(model: Transformer, cfg: ModelConfig, cache, inputs,

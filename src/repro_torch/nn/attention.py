@@ -135,37 +135,44 @@ def _causal_blocked(q, k, v, cfg):
 
 
 def _windowed_blocked(q, k, v, window: int, cfg):
-    """Local / SWA attention: q block i attends kv blocks {i-1, i}. Falls
-    back to :func:`_causal_blocked` when S is not a multiple of the window,
-    as the reference does (``attention.py:130-131``), which then ignores
-    the window."""
+    """Local / SWA attention: q block i attends kv blocks {i-1, i} (block
+    -1 is zeros, masked out). Falls back to :func:`_causal_blocked` when S
+    is not a multiple of the window, as the reference does
+    (``attention.py:130-131``), which then ignores the window. The
+    reference takes every block in one product; the port walks the blocks,
+    each one's scores, softmax and product the reference's, so that only
+    one block's (W, 2W) float32 scores are live (mixtral's window of 4096
+    at S = 8192 would hold two blocks' 12 GiB, twice over)."""
     B, Hkv, G, S, hd = q.shape
     W = min(window, S)
     if S % W != 0:   # the reference's fallback (smoke-test sizes)
         return _causal_blocked(q, k, v, cfg)
-    nb = S // W
     scale = hd ** -0.5
-    qb = q.reshape(B, Hkv, G, nb, W, hd)
-    kb = k.reshape(B, Hkv, nb, W, hd)
-    vb = v.reshape(B, Hkv, nb, W, hd)
-    zeros = torch.zeros_like(kb[:, :, :1])
-    k2 = torch.cat([torch.cat([zeros, kb[:, :, :-1]], dim=2), kb], dim=3)
-    v2 = torch.cat([torch.cat([zeros, vb[:, :, :-1]], dim=2), vb], dim=3)
-    scores = torch.einsum("bhgnqd,bhnkd->bhgnqk", qb.float(),
-                          k2.float()) * scale
     dev = q.device
     wq = torch.arange(W, device=dev)[:, None]           # in-block q offset
     wk = torch.arange(2 * W, device=dev)[None, :] - W   # kv offset vs block
-    blk = torch.arange(nb, device=dev)[:, None, None]
-    pos_q = blk * W + wq[None]
-    pos_k = blk * W + wk[None]
-    mask = (pos_k <= pos_q) & (pos_q - pos_k < W) & (pos_k >= 0)
-    scores.masked_fill_(~mask[None, None, None], NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    del scores
-    out = torch.einsum("bhgnqk,bhnkd->bhgnqd", probs.to(v2.dtype).float(),
-                       v2.float())
-    return out.reshape(B, Hkv, G, S, hd).to(q.dtype)
+    out = torch.empty((B, Hkv, G, S, hd), dtype=q.dtype, device=dev)
+    zeros = torch.zeros_like(k[:, :, :W])
+    for n in range(S // W):
+        lo = n * W
+        prev = slice(lo - W, lo)
+        k2 = torch.cat([zeros if n == 0 else k[:, :, prev],
+                        k[:, :, lo:lo + W]], dim=2)         # (B,Hkv,2W,hd)
+        v2 = torch.cat([zeros if n == 0 else v[:, :, prev],
+                        v[:, :, lo:lo + W]], dim=2)
+        scores = torch.einsum("bhgqd,bhkd->bhgqk",
+                              q[:, :, :, lo:lo + W].float(),
+                              k2.float()) * scale
+        pos_q, pos_k = lo + wq, lo + wk
+        mask = (pos_k <= pos_q) & (pos_q - pos_k < W) & (pos_k >= 0)
+        scores.masked_fill_(~mask, NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        del scores
+        probs = probs.to(v2.dtype)
+        out[:, :, :, lo:lo + W] = torch.einsum(
+            "bhgqk,bhkd->bhgqd", probs.float(), v2.float()).to(q.dtype)
+        del probs
+    return out
 
 
 def _check_causal_chunks(S: int, cfg) -> None:

@@ -1,6 +1,9 @@
 """Shared helpers of the PyTorch-port parity tests (``test_torch_*.py``):
 the port and the JAX reference are fed the same NumPy inputs and their
 outputs compared as host arrays."""
+import importlib.util
+import pathlib
+
 import numpy as np
 import torch
 
@@ -42,3 +45,13 @@ def same_answer(got, want) -> bool:
         return (g.dtype == want.dtype and g.shape == want.shape
                 and g.tobytes() == want.tobytes())
     return got == want
+
+
+def load_chip_smoke():
+    """``chip_smoke.py`` at the repository's root, imported as a module
+    (its phases' functions rehearse on the CPU)."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs

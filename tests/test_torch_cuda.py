@@ -545,3 +545,97 @@ def test_mha_hd64_frames_prefill_matches_plain(cuda_device):
     """musicgen's multi-head attention at hd 64 on frames."""
     _family_prefill_matches_plain(cuda_device, "musicgen-medium",
                                   n_heads=4, n_kv_heads=4, head_dim=64)
+
+
+def test_reduced_mixtral_windowed_prefill_on_wgmma(cuda_device):
+    """Reduced mixtral (GQA 2 at hd 128, window 128 = two kv tiles) on 2 x
+    256 tokens: every layer's attention launches the wgmma kernel with the
+    window applied, each layer's attention agrees with the plain route on
+    the same input within 1e-2 of its largest magnitude (2.5 bf16 steps),
+    the routers stay float32 beside bf16 experts, and the whole prefill
+    (whose routing may flip a token between the routes) stays within
+    phase 10's 1e-1 by the norm of each tensor's error."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import transformer as tf
+    from repro_torch.nn import attention as attn
+    from repro_torch.nn.layers import apply_norm
+
+    cfg = reduced(get_config("mixtral-8x22b"), d_model=256, n_heads=4,
+                  n_kv_heads=2, head_dim=128, swa_window=128)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    model = tf.init_params(cfg, gen, cuda_device)
+    assert {b.ffn.router.dtype for b, _ in model.blocks()} == {torch.float32}
+    assert {b.ffn.w1.dtype for b, _ in model.blocks()} == {torch.bfloat16}
+    x = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 256)).astype(np.int32)).to(cuda_device)
+    windows = []
+    real = ops.flash_attention
+
+    def tallied(q, k, v, **kw):
+        windows.append(kw.get("window"))
+        return real(q, k, v, **kw)
+    ops.reset_launch_counts()
+    ops.flash_attention = tallied
+    try:
+        with torch.inference_mode():
+            got = tf.prefill(model, cfg, x)
+    finally:
+        ops.flash_attention = real
+    assert windows == [128] * cfg.num_layers
+    assert ops.route_counts()["flash_attention"]["wgmma"] == cfg.num_layers
+    with torch.inference_mode():
+        want = tf.prefill(model, cfg, x, use_kernel=False)
+        pos = torch.arange(256, dtype=torch.int32, device=cuda_device)[
+            None].expand(2, 256)
+        h = tf.embed_inputs(model, cfg, x, pos)
+        for block, kind in model.blocks():
+            n = apply_norm(block.norm1, h, cfg.norm)
+            assert _rel_err(attn.attn_forward(block.mixer, n, cfg, kind, pos),
+                            attn.attn_forward(block.mixer, n, cfg, kind, pos,
+                                              use_kernel=False)) <= 1e-2
+            h, _, _ = tf.apply_block(block, h, cfg, kind, pos, False)
+
+    def rms(g, w):
+        return float((g.float() - w.float()).norm() / w.float().norm())
+    assert rms(got[0], want[0]) <= 1e-1
+    for g, w in zip(tf.layer_caches(cfg, got[1]),
+                    tf.layer_caches(cfg, want[1]), strict=True):
+        for name in w:
+            assert rms(g[name], w[name]) <= 1e-1, name
+
+
+def test_moe_dropping_is_bit_stable_on_card(cuda_device):
+    """One bf16 MoE layer (8 experts, top 2) on 4 x 512 tokens: two calls
+    of the dropping dispatch give the same bits, grouped or not
+    (index_add's atomics add at most two nonzero terms a row), and at
+    capacity 8 (nothing dropped) it equals the dense dispatch within 1e-2
+    of the largest magnitude, in 4 groups as in one."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.nn import moe
+    from repro_torch.nn.layers import normal_
+
+    cfg = reduced(get_config("mixtral-8x22b"), d_model=512, n_experts=8,
+                  d_ff_expert=1024, moe_impl="dropping")
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    p = moe.MoE(cfg, cuda_device)
+    for t in p.parameters():
+        normal_(t.data, gen)
+    assert p.router.dtype == torch.float32 and p.w1.dtype == torch.bfloat16
+    x = torch.randn((4, 512, cfg.d_model), generator=gen,
+                    device=cuda_device).bfloat16()
+    with torch.inference_mode():
+        for groups in (0, 4):
+            c = dataclasses.replace(cfg, moe_groups=groups)
+            first, aux = moe.moe_dropping(p, x, c)
+            second, _ = moe.moe_dropping(p, x, c)
+            assert torch.equal(first, second) and float(aux) > 0
+        high = dataclasses.replace(cfg, capacity_factor=8.0)
+        dense, _ = moe.moe_dense(p, x, cfg)
+        one, _ = moe.moe_dropping(p, x, high)
+        four, _ = moe.moe_dropping(p, x, dataclasses.replace(high,
+                                                             moe_groups=4))
+    assert _rel_err(one, dense) <= 1e-2 and _rel_err(four, one) <= 1e-2

@@ -35,6 +35,7 @@ from repro.launch import serve as jserve  # noqa: E402
 from repro.launch import steps as jsteps  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 from repro.nn import layers as jlayers  # noqa: E402
+from _torch_parity import load_chip_smoke  # noqa: E402
 from repro_torch.configs import UNPORTED, get_config, reduced  # noqa: E402
 from repro_torch.launch import serve, steps  # noqa: E402
 from repro_torch.models import params as mp  # noqa: E402
@@ -123,7 +124,8 @@ def _caches_close(got, want, cfg, what):
 
 
 # ------------------------------------------------------------------ configs
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ("mixtral-8x22b",
+                                          "phi3.5-moe-42b-a6.6b"))
 def test_config_equals_reference(arch):
     assert dataclasses.asdict(get_config(arch)) \
         == dataclasses.asdict(ref_get_config(arch))
@@ -132,9 +134,8 @@ def test_config_equals_reference(arch):
     assert arch not in UNPORTED
 
 
-def test_unported_holds_the_moe_and_xlstm_families():
-    assert sorted(UNPORTED) == ["mixtral-8x22b", "phi3.5-moe-42b-a6.6b",
-                                "xlstm-1.3b"]
+def test_unported_holds_the_xlstm_family():
+    assert sorted(UNPORTED) == ["xlstm-1.3b"]
 
 
 def test_reduced_shapes():
@@ -167,9 +168,9 @@ def test_first_block_matches_reference(families, arch):
         want, _ = jtf._apply_block(jblock, jnp.asarray(x), jcfg, kind,
                                    jnp.asarray(pos))
         with torch.inference_mode():
-            got, _ = tf.apply_block(model.units[0][f"b{i}"],
-                                    torch.from_numpy(x), cfg, kind,
-                                    torch.from_numpy(pos))
+            got, _, _ = tf.apply_block(model.units[0][f"b{i}"],
+                                       torch.from_numpy(x), cfg, kind,
+                                       torch.from_numpy(pos))
         _close(got, want, f"{arch} b{i} ({kind})", LAYER_TOL)
 
 
@@ -326,17 +327,6 @@ def test_frames_loss_and_gradients_match_jax_grad(families):
 
 
 # ------------------------------------------------- chip_smoke.py phase 9
-def _chip_smoke():
-    import importlib.util
-    import pathlib
-
-    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
-    return cs
-
-
 @pytest.mark.parametrize("arch", ARCHS)
 def test_chip_smoke_serving_checks_rehearse_on_cpu(monkeypatch, arch):
     """chip_smoke.py phase 9's serving checks on the CPU at the reduced
@@ -348,7 +338,7 @@ def test_chip_smoke_serving_checks_rehearse_on_cpu(monkeypatch, arch):
     limit (gemma3's local layers with the window ones too)."""
     from repro_torch.kernels import ops, ref
 
-    cs = _chip_smoke()
+    cs = load_chip_smoke()
     monkeypatch.setattr(ops, "wants_kernel",
                         lambda t, use_kernel: use_kernel is not False)
     monkeypatch.setattr(ops._fa, "flash_attention",
@@ -386,7 +376,7 @@ def test_chip_smoke_serving_checks_rehearse_on_cpu(monkeypatch, arch):
 
 
 def test_chip_smoke_prefill_limits_and_decode_bound():
-    cs = _chip_smoke()
+    cs = load_chip_smoke()
     # a limit per phase 9 model; gemma3, whose scaled embeddings keep the
     # stream large as recurrentgemma's do, stays under phase 5's argument
     # ((1 + 2^-9)^layers - 1, which MODEL_RTOL rounds at 26 layers)
@@ -411,7 +401,7 @@ def test_chip_smoke_rounded_p_attention(window):
     to 4 bits it departs by more."""
     from repro_torch.kernels import ref
 
-    cs = _chip_smoke()
+    cs = load_chip_smoke()
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(4096)
                          .astype(np.float32))
     assert torch.equal(cs.round_to_bits(torch, x.clone(), 8),
@@ -438,7 +428,7 @@ def test_chip_smoke_frames_training_rehearses_on_cpu(monkeypatch):
     from repro_torch.kernels import flash_attention as cuda_fa
     from repro_torch.kernels import ops, ref
 
-    cs = _chip_smoke()
+    cs = load_chip_smoke()
 
     def fwd(q, k, v, *, causal=True, window=None, return_lse=False):
         out = ref.flash_attention(q, k, v, causal=causal, window=window)
@@ -472,7 +462,7 @@ def test_chip_smoke_phase9_attention_shapes():
     """The attention calls phase 9 expects of each full-width run: one per
     attention layer, gemma3's 52 local layers with their window (4096 is a
     multiple of 1024) and its 10 global ones without."""
-    cs = _chip_smoke()
+    cs = load_chip_smoke()
     runs = {arch: cs.family_attention_shapes(cs.family_config(arch, layers),
                                              requests)
             for arch, layers, requests in cs.FAMILY_RUNS}

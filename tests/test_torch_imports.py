@@ -41,7 +41,8 @@ def test_port_has_the_slice_modules():
               "train.loss", "train.data", "train.compression",
               "launch.train", "configs.qwen1_5_110b",
               "configs.starcoder2_7b", "configs.gemma3_27b",
-              "configs.internvl2_76b", "configs.musicgen_medium"):
+              "configs.internvl2_76b", "configs.musicgen_medium",
+              "nn.moe", "configs.mixtral_8x22b", "configs.phi3_5_moe"):
         assert f"repro_torch.{m}" in mods, m
     for src in ("snapshot_resolve.cu", "segment_sum.cu", "lru_scan.cu",
                 "flash_attention.cu", "flash_attention_bwd.cu"):

@@ -342,7 +342,8 @@ def test_bf16_backward_scope_survives_recompute(monkeypatch, step_setups):
     with torch.no_grad(), layers.bf16_backward_scope(True):
         x = tf.embed_inputs(model, cfg, inputs, pos)
         for i, kind in enumerate(cfg.pattern):
-            x, _ = tf.apply_block(model.units[0][f"b{i}"], x, cfg, kind, pos)
+            x, _, _ = tf.apply_block(model.units[0][f"b{i}"], x, cfg, kind,
+                                     pos)
     unit_dense = calls["fwd"]
     chunks = -(-B * S // cfg.loss_chunk)
 
