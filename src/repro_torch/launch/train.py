@@ -176,34 +176,38 @@ def run(cfg, *, steps, batch, seq, ckpt_dir, ckpt_every=10, fail_at=None,
 # bytes of training state per parameter: the float32 master weight, its
 # gradient and AdamW's m and v
 STATE_BYTES_PER_PARAM = 16
+# the share of the card's memory the training state may take, the rest left
+# to activations
+FIT_SHARE = 0.75
 
 
-def depth_that_fits(cfg, memory_bytes: int, share: float = 0.75) -> int:
+def depth_that_fits(cfg, memory_bytes: int) -> int:
     """The most layers of ``cfg`` (its pattern's first kind, at full width)
-    whose training state takes at most ``share`` of ``memory_bytes``, the
-    rest left to activations; 0 when not even the embeddings fit."""
+    whose training state takes at most FIT_SHARE of ``memory_bytes``; 0
+    when not even the embeddings fit."""
     kinds = list(cfg.pattern) * cfg.num_units + list(cfg.tail_pattern)
     base = cfg.param_count() - sum(cfg._block_params(k) for k in kinds)
     per_layer = cfg._block_params(cfg.pattern[0])
-    room = share * memory_bytes / STATE_BYTES_PER_PARAM - base
+    room = FIT_SHARE * memory_bytes / STATE_BYTES_PER_PARAM - base
     return max(0, int(room // per_layer))
 
 
 def check_fits(cfg, device) -> None:
     """Refuse (SystemExit) a config whose training state, 16 bytes a
-    parameter, exceeds the card's memory, naming the depth that fits."""
+    parameter, exceeds FIT_SHARE of the card's memory, naming the depth
+    that fits."""
     if device.type != "cuda":
         return
     total = torch.cuda.get_device_properties(device).total_memory
     need = STATE_BYTES_PER_PARAM * cfg.param_count()
-    if need <= total:
+    if need <= FIT_SHARE * total:
         return
     raise SystemExit(
         f"{cfg.name} at full size needs {need / 2**30:.1f} GiB of float32 "
-        f"weights, gradients and AdamW moments, more than the card's "
-        f"{total / 2**30:.1f} GiB: cut its depth to "
-        f"{depth_that_fits(cfg, total)} of its {cfg.num_layers} layers, "
-        "which keeps a quarter of the card for activations "
+        f"weights, gradients and AdamW moments, more than {FIT_SHARE:.0%} "
+        f"of the card's {total / 2**30:.1f} GiB (the rest is left to "
+        f"activations): cut its depth to {depth_that_fits(cfg, total)} of "
+        f"its {cfg.num_layers} layers "
         "(dataclasses.replace(cfg, num_layers=N), trained through "
         "repro_torch.launch.train.run)")
 

@@ -415,7 +415,9 @@ def test_train_refuses_a_full_size_model_that_cannot_fit(monkeypatch):
     """launch.train's depth check: phi3.5-moe needs 624 GiB of float32
     training state and 2 full-width layers fit 75 % of 80 GiB; mixtral's
     one layer (2.5 B parameters, 37 GiB) fits. On an 80 GiB card the full
-    model is refused with that depth, and the cut one passes."""
+    model is refused with that depth, as is 3 layers' state (within the
+    card but over the 75 % that leaves room for activations), and the cut
+    one passes."""
     phi = get_config("phi3.5-moe-42b-a6.6b")
     assert ptrain.STATE_BYTES_PER_PARAM * phi.param_count() > 600 * 2**30
     assert ptrain.depth_that_fits(phi, 80 * 2**30) == 2
@@ -432,6 +434,11 @@ def test_train_refuses_a_full_size_model_that_cannot_fit(monkeypatch):
     monkeypatch.setattr(torch.cuda, "get_device_properties", lambda d: Card)
     with pytest.raises(SystemExit, match="cut its depth to 2 of its 32"):
         ptrain.check_fits(phi, torch.device("cuda"))
+    three = dataclasses.replace(phi, num_layers=3)
+    assert 0.75 * 80 * 2**30 < ptrain.STATE_BYTES_PER_PARAM \
+        * three.param_count() <= 80 * 2**30
+    with pytest.raises(SystemExit, match="cut its depth to 2 of its 3 "):
+        ptrain.check_fits(three, torch.device("cuda"))
     ptrain.check_fits(cut, torch.device("cuda"))
 
 
@@ -484,34 +491,74 @@ def test_chip_smoke_moe_checks_rehearse_on_cpu(monkeypatch, arch):
     layer = cs.check_moe_layer(torch, run)
     assert layer["bit_equal"] and max(layer["errs"].values()) <= 1e-6
     assert layer["aux"] > 0.5 and layer["timed"] is None
-    assert layer["layer_flips"] == 0.0
-    rtol = (1 + 2.0 ** -8) ** cfg.num_layers - 1
+    routing = cs.routing_layer_flips(torch, run)
+    assert set(routing["share"]) == {"kernel", "P to 8 bits",
+                                     "router in bf16"}
+    assert all(len(v) == cfg.num_layers
+               for v in routing["per_layer"].values())
+    assert routing["share"]["kernel"] == 0.0
+    monkeypatch.setattr(cs, "MOE_PREFILL_RTOL",
+                        (1 + 2.0 ** -8) ** cfg.num_layers - 1)
     variants = cs.moe_prefill_variants(torch, cfg)
-    assert {n: g for n, (g, _) in variants.items()} == {
-        "causal off": "fault", "kv heads rolled": "fault",
-        "top_w not renormalised": "fault",
-        "the (k+1)-th expert chosen": "fault", "router in bf16": "finding",
-        "P to 8 bits": "sound", "P to 4 bits": "control"}
-    agree = cs.check_moe_prefill(torch, run, cfg, rtol, variants, gen=3)
-    assert agree["worst_rms"] <= 1e-6 and agree["flips"] == 0.0
+    assert {n: (g, f) for n, (g, _, f) in variants.items()} == {
+        "causal off": ("fault", None), "kv heads rolled": ("fault", None),
+        "top_w not renormalised": ("fault", "top_w not renormalised"),
+        "the (k+1)-th expert chosen": ("fault",
+                                       "the (k+1)-th expert chosen"),
+        "router in bf16": ("finding", "router in bf16"),
+        "P to 8 bits": ("sound", None), "P to 4 bits": ("control", None)}
+    agree = cs.check_moe_prefill(torch, run, cfg, variants)
     got = agree["variants"]
+    assert got["kernel"]["err"] <= 1e-6 and got["kernel"]["flips"] == 0.0
+    assert agree["free"]["err"] <= 1e-6 and agree["free"]["flips"] == 0.0
+    assert len(got["kernel"]["per_layer"]) == cfg.num_layers
+    # the fault is in the choice: every token's set differs from the plain
+    # route's, and the replay keeps it
     assert got["the (k+1)-th expert chosen"]["flips"] == 1.0
-    assert got["P to 8 bits"]["rms"] <= rtol < got["P to 4 bits"]["rms"]
     drop = dataclasses.replace(cfg, moe_impl="dropping")
-    agree = cs.check_moe_prefill(torch, run, drop, rtol, {
-        "sel_w left out": ("fault", lambda: cs.swapped(
-            moe, "dispatch", cs.sel_w_left_out(torch)))}, gen=3)
+    variants = cs.moe_prefill_variants(torch, drop)
+    assert set(variants) == {"sel_w left out", "P to 8 bits", "P to 4 bits"}
+    agree = cs.check_moe_prefill(torch, run, drop, variants)
     assert agree["impl"] == "dropping"
-    assert agree["variants"]["sel_w left out"]["rms"] > rtol
+    assert agree["variants"]["kernel"]["slot_flips"] == 0.0
+    assert agree["variants"]["sel_w left out"]["err"] \
+        > cs.MOE_PREFILL_RTOL
 
 
-def test_chip_smoke_limits_fail_the_run_unless_probing(monkeypatch):
+def test_chip_smoke_routing_replay_takes_the_plain_choices():
+    """routing_tap's replay: a prefill replaying its own route's tap
+    routes exactly as the model does; replaying another route's tap (here
+    one whose (k+1)-th expert was chosen) takes that route's expert sets
+    and dropping slots, weighted by this route's own probabilities, while
+    recording the sets this route would have chosen."""
     cs = load_chip_smoke()
-    assert cs.MOE_LIMITS_ENFORCED
-    with pytest.raises(cs.SmokeFailure, match="over"):
-        cs.limit(False, "a reading over its limit")
-    monkeypatch.setattr(cs, "MOE_LIMITS_ENFORCED", False)
-    cs.limit(False, "a reading over its limit")
+    _, cfg, _, p, x = _moe_layer("phi3.5-moe-42b-a6.6b", moe_impl="dropping")
+    h = torch.from_numpy(x)
+    with torch.inference_mode():
+        want = moe.moe_forward(p, h, cfg)[0]
+        with cs.routing_tap(torch) as plain:
+            assert torch.equal(moe.moe_forward(p, h, cfg)[0], want)
+        with cs.routing_tap(torch, plain) as same:
+            assert torch.equal(moe.moe_forward(p, h, cfg)[0], want)
+        with cs.routing_tap(torch, fault="the (k+1)-th expert chosen") \
+                as other:
+            moe._routing(p, h.reshape(B * P, -1), cfg)
+            other_out = moe.moe_forward(p, h, cfg)[0]
+        with cs.routing_tap(torch, other) as replayed:
+            combine = moe._routing(p, h.reshape(B * P, -1), cfg)[0]
+            replayed_out = moe.moe_forward(p, h, cfg)[0]
+    assert cs.flip_share(same.sets, plain.sets) == 0.0
+    assert cs.flip_share(same.slots, plain.slots) == 0.0
+    # the replayed route records its own choice, and routes by the other's
+    assert cs.flip_share(replayed.sets[1:], plain.sets) == 0.0
+    assert cs.flip_share(other.sets[1:], plain.sets) == 1.0
+    used = (combine > 0).nonzero()[:, 1].reshape(B * P, cfg.top_k)
+    assert torch.equal(used.byte(), other.sets[0])
+    assert torch.allclose(combine.sum(-1), torch.ones(B * P))
+    assert torch.equal(replayed_out, other_out)
+    assert not torch.equal(replayed_out, want)
+    assert moe._routing.__name__ == "_routing"
+    assert moe.dispatch.__name__ == "dispatch"
 
 
 def test_chip_smoke_routing_faults_and_flips():
@@ -521,27 +568,31 @@ def test_chip_smoke_routing_faults_and_flips():
     cs = load_chip_smoke()
     _, cfg, _, p, x = _moe_layer("phi3.5-moe-42b-a6.6b")
     xt = torch.from_numpy(x.reshape(B * P, cfg.d_model))
+
+    def routed(fault=None):
+        with cs.routing_tap(torch, fault=fault) as tap:
+            out = moe._routing(p, xt, cfg)
+            moe._routing(p, xt, cfg)
+        return out, tap
     with torch.inference_mode():
-        want = moe._routing(p, xt, cfg)
-        got = {n: cs.faulty_routing(torch, n)(p, xt, cfg)
-               for n in cs.MOE_ROUTING_FAULTS}
-    assert torch.equal(got["top_w not renormalised"][1], want[1])
-    assert bool((got["top_w not renormalised"][2].sum(-1) < 1).all())
-    kth = got["the (k+1)-th expert chosen"][1]
+        want, a = routed()
+        got = {n: routed(n) for n in cs.MOE_ROUTING_FAULTS}
+        sel_w, _ = moe.dispatch(want[0], cfg)
+        with cs.routing_tap(torch, fault="sel_w left out"):
+            left_out, _ = moe.dispatch(want[0], cfg)
+    assert torch.equal(want[1], moe._routing(p, xt, cfg)[1])
+    (w, idx, top_w, _), _ = got["top_w not renormalised"]
+    assert torch.equal(idx, want[1])
+    assert bool((top_w.sum(-1) < 1).all())
+    (_, kth, _, _), b = got["the (k+1)-th expert chosen"]
     assert torch.equal(kth[:, 0], want[1][:, 0])
     assert not bool((kth[:, 1] == want[1][:, 1]).any())
-    assert torch.allclose(got["router in bf16"][0], want[0], atol=2e-2)
-    with cs.routing_tap() as a, torch.inference_mode():
-        moe._routing(p, xt, cfg)
-        moe._routing(p, xt, cfg)
-    with cs.swapped(moe, "_routing", cs.faulty_routing(
-            torch, "the (k+1)-th expert chosen")), cs.routing_tap() as b, \
-            torch.inference_mode():
-        moe._routing(p, xt, cfg)
-        moe._routing(p, xt, cfg)
-    assert moe._routing.__name__ == "_routing"
+    assert torch.allclose(got["router in bf16"][0][0], want[0], atol=2e-2)
+    assert torch.equal(got["sel_w left out"][0][0], want[0])
+    assert bool((left_out == 1).all()) and bool((sel_w < 1).any())
     assert cs.flip_share(a.sets, a.sets) == 0.0
     assert cs.flip_share(a.sets, b.sets) == 1.0
+    assert len(a.sets) == 2
 
 
 def test_chip_smoke_moe_training_rehearses_on_cpu(monkeypatch):
@@ -592,7 +643,9 @@ def test_chip_smoke_phase10_runs():
     assert runs == {
         "mixtral-8x22b": {(1, 48, 8, 8192, 128, 4096): 10},
         "phi3.5-moe-42b-a6.6b": {(2, 32, 8, 4096, 128, None): 20}}
-    assert set(cs.MOE_PREFILL_RTOL) == set(runs)
+    # one prefill limit for both models and dispatches, and a bf16 router
+    # must flip more tokens than either sound route
+    assert 0 < cs.MOE_PREFILL_RTOL < 1 and cs.BF16_ROUTER_FLIPS > 1
     for arch, layers, _, _ in cs.MOE_RUNS:
         assert 2 * cs.family_config(arch, layers).param_count() < 56e9
     cfg = cs.family_config(cs.MOE_TRAIN_ARCH, cs.MOE_TRAIN_LAYERS)
