@@ -168,6 +168,38 @@ before the result lines:
    whose gradient reaches every router. The kernels line gains a
    ``flash_attention`` row per new shape (serving and training) and a
    ``flash_attention_bwd`` row at phi3.5-moe's training shape.
+11. The xLSTM family, which holds no kernel (the reference computes it
+   with ``lax.scan`` and einsums; the port with tensor code and a loop
+   over time): ``xlstm-1.3b`` at full width and depth (48 layers, 2.02 B
+   parameters, random from seed 0, bf16 where only ``dense`` reads a
+   weight) through ``Server.generate`` on its own route (the mLSTM scan),
+   2 x 1024 prompt tokens + 32 greedy; no kernel launched; prefill s,
+   decode ms beside the bytes a step must move (weights, and the states
+   read and written), the launches, host ms and device ms of one mLSTM
+   scan step and one sLSTM step. The chunkwise route (chunk 64) on the
+   same prompts against the scan route: layer by layer, each mixer fed
+   the scan route's input (output within ``MIXER_RTOL``, states within
+   ``XLSTM_STATE_RTOL``, the carry without decay_in planted over them),
+   and the whole prefill within ``XLSTM_ROUTE_RTOL``; then the decode
+   steps and one layer of each kind's prefill profiled (busy share).
+   Continuity on palindromic convolution kernels (the reference's decode
+   reverses the kernel): prefill 128 and decode 32 of the prompt's next
+   tokens against a prefill of 160, layer by layer (``MIXER_RTOL``,
+   states ``XLSTM_CONT_RTOL``; the decode's conv state left unshifted
+   over them; the random kernels' gap and the gap without the prefill's
+   conv rounding reported) and whole (``XLSTM_CONT_WHOLE_RTOL``). A
+   chunkwise prefill of 4 x 4096 through 4 layers, timed. One full-width
+   layer of each mixer (1 x 256) against the same function with its
+   float32 arithmetic in float64: the output within ``MIXER_RTOL``, the
+   states within ``XLSTM_STATE_RTOL``, the sLSTM's gelu within
+   ``XLSTM_GELU_RTOL``, with planted faults (the stabiliser m held at 0,
+   the prefill's conv output unrounded, the chunkwise carry without
+   decay_in, the i and f gates swapped, the exact ``F.gelu``) each over
+   a limit. Then training: ``check_fits`` passes the full model (32.3 GB
+   of float32 state), and ``launch.train.run`` trains it cut to 4 layers
+   on the chunkwise route, 1 + 2 steps of 2 x 2048 tokens, the first loss
+   within 1 of ln(50304). Every line carries the card's name and power
+   limit; the kernels line is unchanged.
 
 Phase 2 also holds the model kernels against their plain versions at the
 slice's shapes: ``lru_scan`` at (8, 4096, 2560) with and without ``h0``,
@@ -319,6 +351,53 @@ BF16_ROUTER_FLIPS = 1.3
 MOE_TRAIN_ARCH = "phi3.5-moe-42b-a6.6b"
 MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ = 2, 2048
 MOE_TRAIN_WARMUP, MOE_TRAIN_STEPS = 1, 2
+# phase 11: the xLSTM family, xlstm-1.3b at full width and depth (48
+# layers, 2.02 B parameters) on its own mLSTM route (mlstm_impl "scan",
+# mlstm_chunk 0) through Server.generate, and on the chunkwise route
+XLSTM_ARCH = "xlstm-1.3b"
+XLSTM_REQUESTS, XLSTM_PROMPT, XLSTM_GEN = 2, 1024, 32
+XLSTM_CHUNK = 64
+# the chunkwise prefill timed at 4 x 4096, through 4 of the 48 layers (2
+# of each kind; the whole depth takes 42 s on the card, a fifth of the
+# phase) on a model of its own
+XLSTM_LONG = (4, 4096)
+XLSTM_LONG_LAYERS = 4
+XLSTM_LAYER = (1, 256)                # B x S of the one-layer checks
+XLSTM_CONT_PROMPT = 128               # the continuity check's prompt
+XLSTM_STEP_REPS = 50                  # calls timed of one cell step
+# Limits. Layer by layer, each mixer fed the same input: one full-width
+# layer against the same function with its float32 arithmetic in float64
+# (check_xlstm_mixers), and each layer of the served model on the
+# chunkwise route against the scan route: the output within MIXER_RTOL
+# (one bf16 step of the output's rounding, 2.5 allowed) and the float32
+# states within this, a float32 recurrence with exp and log (1.7e-6 read
+# against float64 on an H100)
+XLSTM_STATE_RTOL = 1e-4
+# the sLSTM's gelu on its own inputs against the tanh form in float64:
+# float32 arithmetic and tanh, a few units in the last place (7e-8 in a
+# CPU rehearsal; the exact form reads 7e-5 there)
+XLSTM_GELU_RTOL = 1e-6
+# layer by layer, a mixer's prefill of P and 32 decode steps against its
+# prefill of P + 32 on the same input, palindromic convolution kernels
+# (the reference reverses the kernel in decode): the decode's convolution
+# is not rounded to bf16 where the prefill's is, up to 2^-9 of the mLSTM's
+# q and k over the last 32 steps
+XLSTM_CONT_RTOL = 1e-2
+# The whole prefill, chunkwise route against the scan route (the logits
+# and every layer's state, relative to each tensor's largest magnitude),
+# and the whole model's prefill + decode against its prefill: 5e-2 and
+# 1e-1, stated before the first card run, failed (0.412 and 0.601): with
+# random weights a float32-level difference grows with depth, as the
+# float64 arithmetic's does (0.368). Each is set by the rule in PERF.md
+# on tools/probe_phase11.py's readings on an H100: the geometric mean of
+# the largest sound reading (the chunkwise route's 0.412; the palindromic
+# continuity gap at P = 128, 0.438) and the control, each mixer's output
+# kept to 4 significant bits (1.511), to 3 figures
+XLSTM_ROUTE_RTOL = 7.89e-1
+XLSTM_CONT_WHOLE_RTOL = 8.14e-1
+# training: full width, cut to 4 layers (2 mLSTM, 2 sLSTM), chunkwise
+XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_SEQ = 4, 2048
+XLSTM_TRAIN_WARMUP, XLSTM_TRAIN_STEPS = 1, 2
 
 
 # one-element int16 fills that open each profiler window, and the name of
@@ -1104,6 +1183,7 @@ def serve_model(torch, cfg, device: str = "cuda",
     attention calls are also tallied by shape (:class:`attention_shapes`)."""
     import numpy as np
 
+    from repro_torch.configs import ATTN_KINDS
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import Server
     from repro_torch.models import transformer as tf
@@ -1139,10 +1219,10 @@ def serve_model(torch, cfg, device: str = "cuda",
     counts = ops.launch_counts()
     routes = ops.route_counts()["flash_attention"]
     kinds = [k for _, k in model.blocks()]
+    n_attn = sum(k in ATTN_KINDS for k in kinds)
     on_card = device == "cuda"
     want = {"lru_scan": kinds.count("rglru") if on_card else 0,
-            "flash_attention": len(kinds) - kinds.count("rglru")
-            if on_card else 0}
+            "flash_attention": n_attn if on_card else 0}
     for name, n in want.items():
         check(counts[name] == n,
               f"{name} launched {counts[name]} times, expected {n}")
@@ -1150,7 +1230,7 @@ def serve_model(torch, cfg, device: str = "cuda",
     check(routes["wgmma"] == want["flash_attention"],
           f"flash_attention routes {routes}, expected "
           f"{want['flash_attention']} wgmma launches")
-    check(sum(shapes.calls.values()) == len(kinds) - kinds.count("rglru"),
+    check(sum(shapes.calls.values()) == n_attn,
           f"attention calls by shape {shapes.calls}")
     check(out.shape == (requests, gen) and out.dtype == np.int32
           and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
@@ -2408,10 +2488,13 @@ def launches_per_step(cfg) -> dict:
     """Kernel launches of one train step with cfg.remat "full": the units'
     forward kernels run twice (the forward and the recompute in the
     backward), the tail's once; each layer's backward kernel once."""
+    from repro_torch.configs import ATTN_KINDS
+
     unit = list(cfg.pattern) * cfg.num_units
     tail = list(cfg.tail_pattern)
     rg_u, rg_t = unit.count("rglru"), tail.count("rglru")
-    at_u, at_t = len(unit) - rg_u, len(tail) - rg_t
+    at_u = sum(k in ATTN_KINDS for k in unit)
+    at_t = sum(k in ATTN_KINDS for k in tail)
     return {"lru_scan": 2 * rg_u + rg_t, "lru_scan_bwd": rg_u + rg_t,
             "flash_attention": 2 * at_u + at_t,
             "flash_attention_bwd": at_u + at_t}
@@ -2583,20 +2666,25 @@ def train_fault_path(torch, cfg, device: str = "cuda") -> dict:
 
 # --------------------------------------------------------------- phase 9
 def decode_bound(model, cfg, batch: int, prompt: int, gen: int) -> dict:
-    """The bytes one decode step must read, averaged over a run's ``gen``
-    steps after a ``prompt``: every weight but the embedding table once,
-    and each attention layer's bf16 keys and values at the positions the
-    step attends to (all up to it, or its window's); over
-    HBM_BYTES_PER_S, the step's bound in ms."""
+    """The bytes one decode step must move, averaged over a run's ``gen``
+    steps after a ``prompt``: every weight but the embedding table read
+    once, each attention layer's bf16 keys and values at the positions the
+    step attends to (all up to it, or its window's) read, and each
+    recurrent layer's float32 state (its decode cache) read and written;
+    over HBM_BYTES_PER_S, the step's bound in ms."""
     from repro_torch.configs import ATTN_KINDS
+    from repro_torch.models import transformer as tf
     from repro_torch.nn import attention as attn
 
     weights = sum(p.numel() * p.element_size()
                   for n, p in model.named_parameters() if n != "embed")
     per_position = 2 * batch * cfg.n_kv_heads * cfg.resolved_head_dim * 2
-    positions = 0
+    positions, state = 0, 0
     for _, kind in model.blocks():
         if kind not in ATTN_KINDS:
+            state += 2 * sum(t.numel() * t.element_size() for t in
+                             tf._block_cache(cfg, kind, batch, 0,
+                                             "meta").values())
             continue
         window = attn.window_for(kind, cfg)
         for t in range(gen):
@@ -2604,7 +2692,8 @@ def decode_bound(model, cfg, batch: int, prompt: int, gen: int) -> dict:
             positions += n if window is None else min(n, window)
     cache = per_position * positions / gen
     return {"weight_bytes": weights, "cache_bytes": cache,
-            "bound_ms": (weights + cache) / HBM_BYTES_PER_S * 1e3}
+            "state_bytes": state,
+            "bound_ms": (weights + cache + state) / HBM_BYTES_PER_S * 1e3}
 
 
 def busy_split(window: primed_profile, wall_s: float, per: int = 1) -> dict:
@@ -2628,11 +2717,13 @@ def busy_split(window: primed_profile, wall_s: float, per: int = 1) -> dict:
                                / per for e in top}}
 
 
-def serve_time_split(torch, run: dict, steps: int = SPLIT_DECODE_STEPS
-                     ) -> dict:
+def serve_time_split(torch, run: dict, steps: int = SPLIT_DECODE_STEPS,
+                     prefilled=None) -> dict:
     """One more kernel prefill of the run's inputs, then ``steps`` decode
     steps after it (the greedy tokens, or the run's next frames), each
-    under ``torch.profiler`` between synchronises: see :func:`busy_split`."""
+    under ``torch.profiler`` between synchronises: see :func:`busy_split`.
+    Given ``prefilled``, the (logits, cache) of a prefill of the run's
+    inputs already run, the decode steps start from it alone."""
     from repro_torch.launch.steps import make_decode_step
     from repro_torch.models import transformer as tf
 
@@ -2647,13 +2738,16 @@ def serve_time_split(torch, run: dict, steps: int = SPLIT_DECODE_STEPS
     out = {}
     with torch.inference_mode():
         torch.cuda.synchronize()
-        with primed_profile(torch) as window:
-            t = time.perf_counter()
-            logits, cache = tf.prefill(model, cfg, prompts,
-                                       capacity=P + steps)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-        out["prefill"] = busy_split(window, wall)
+        if prefilled is not None:
+            logits, cache = prefilled
+        else:
+            with primed_profile(torch) as window:
+                t = time.perf_counter()
+                logits, cache = tf.prefill(model, cfg, prompts,
+                                           capacity=P + steps)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            out["prefill"] = busy_split(window, wall)
         with primed_profile(torch) as window:
             t = time.perf_counter()
             for i in range(steps):
@@ -3505,6 +3599,674 @@ def serve_moe_family(torch, rows: list) -> None:
     rows.extend(by_shape.values())
     rows.extend([train_row, bwd_row])
 
+# --------------------------------------------------------------- phase 11
+def xlstm_config(impl: str = "scan", chunk: int = 0, layers=None):
+    """xlstm-1.3b, ``layers`` deep (all 48 when None), on the mLSTM route
+    ``impl`` with ``mlstm_chunk`` = ``chunk``."""
+    import dataclasses
+
+    return dataclasses.replace(family_config(XLSTM_ARCH, layers),
+                               mlstm_impl=impl, mlstm_chunk=chunk)
+
+
+def step_cost(torch, fn, reps: int = XLSTM_STEP_REPS) -> dict:
+    """One call of ``fn`` (a cell step): its host ms (:func:`host_ms`) and,
+    from a :class:`primed_profile` window over ``reps`` calls, its
+    launches and device ms."""
+    host = host_ms(torch, fn, reps)
+    with primed_profile(torch) as window:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = window.events()
+    return {"launches": sum(e.count for e in events) / reps,
+            "host_ms": host,
+            "device_ms": sum(e.self_device_time_total for e in events)
+            / 1e3 / reps}
+
+
+def xlstm_step_costs(torch, cfg, batch: int) -> dict:
+    """The cost of one time step of each cell at full width on ``batch``
+    rows (:func:`step_cost`): the mLSTM scan's ``_mlstm_cell_step`` (C
+    (B, 4, 1024, 1024) float32) and the sLSTM's ``_slstm_step`` (hd 512),
+    on seeded inputs."""
+    from repro_torch.nn import recurrent as rec
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 11)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    _, H, hd = rec._mlstm_dims(cfg)
+    m_carry = (rand(batch, H, hd, hd, scale=1e-2), rand(batch, H, hd),
+               torch.zeros((batch, H), device="cuda"))
+    m_in = (rand(batch, H, hd), rand(batch, H, hd), rand(batch, H, hd),
+            rand(batch, H), rand(batch, H))
+    hs = cfg.d_model // H
+    s_carry = (rand(batch, H, hs), rand(batch, H, hs).abs() + 1,
+               torch.zeros((batch, H, hs), device="cuda"), rand(batch, H, hs))
+    r, wx = rand(H, hs, 4 * hs, scale=0.02), rand(batch, H, 4 * hs)
+    with torch.inference_mode():
+        return {"mLSTM scan step": step_cost(
+                    torch, lambda: rec._mlstm_cell_step(m_carry, m_in)),
+                "sLSTM step": step_cost(
+                    torch, lambda: rec._slstm_step(r, s_carry, wx))}
+
+
+def xlstm_time_split(torch, run: dict, prefilled) -> dict:
+    """The decode steps after ``prefilled`` (the scan route's (logits,
+    cache) of the run's prompts; :func:`serve_time_split`), and one layer
+    of each mixer kind's prefill on the run's embedded prompts, in a
+    :class:`primed_profile` window each (:func:`busy_split`); the whole
+    prefill is not profiled (a million launches)."""
+    from repro_torch.launch.steps import make_positions
+    from repro_torch.models import transformer as tf
+    from repro_torch.nn.layers import apply_norm
+
+    cfg, model = run["cfg"], run["model"]
+    out = serve_time_split(torch, run, prefilled=prefilled)
+    prompts = torch.from_numpy(run["prompts"]).to(model.device)
+    with torch.inference_mode():
+        x = tf.embed_inputs(model, cfg, prompts,
+                            make_positions(*prompts.shape, model.device))
+        for block, kind in model.blocks():
+            if f"{kind} layer prefill" in out:
+                continue
+            h = apply_norm(block.norm1, x, cfg.norm)
+            torch.cuda.synchronize()
+            with primed_profile(torch) as window:
+                t = time.perf_counter()
+                xlstm_mixer(kind)[0](block.mixer, h, cfg)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            out[f"{kind} layer prefill"] = busy_split(window, wall)
+    return out
+
+
+def xlstm_mixer(kind: str):
+    """(forward, decode) of the xLSTM mixer ``kind``."""
+    from repro_torch.nn import recurrent as rec
+
+    if kind == "mlstm":
+        return rec.mlstm_forward, rec.mlstm_decode
+    return rec.slstm_forward, rec.slstm_decode
+
+
+class mixer_tap:
+    """Within ``with``, the model path's xLSTM mixers
+    (``nn.recurrent.mlstm_forward`` and ``slstm_forward``) record each
+    call in ``calls``, in layer order: (kind, the mixer, its normed input,
+    its result)."""
+
+    def __init__(self):
+        from repro_torch.nn import recurrent as rec
+        self.rec, self.calls = rec, []
+
+    def __enter__(self):
+        self.real = {k: getattr(self.rec, f"{k}_forward")
+                     for k in ("mlstm", "slstm")}
+        for kind, fwd in self.real.items():
+            def tapped(p, x, cfg, return_state=False, kind=kind, fwd=fwd):
+                out = fwd(p, x, cfg, return_state=return_state)
+                self.calls.append((kind, p, x, out))
+                return out
+            setattr(self.rec, f"{kind}_forward", tapped)
+        return self
+
+    def __exit__(self, *exc):
+        for kind, fwd in self.real.items():
+            setattr(self.rec, f"{kind}_forward", fwd)
+
+
+def mixer_errors(torch, got, want) -> dict:
+    """max_rel_err of a mixer's (output, state) against another's: "out"
+    and "state.<name>" for each tensor of the state."""
+    (y, st), (y0, st0) = got, want
+    e = {"out": max_rel_err(torch, y, y0)}
+    e.update({f"state.{k}": max_rel_err(torch, st[k], st0[k]) for k in st0})
+    return e
+
+
+def over_limits(e: dict, state_limit: float) -> list:
+    """The readings of ``e`` over their limit: the output MIXER_RTOL, the
+    states ``state_limit``, the sLSTM's gelu XLSTM_GELU_RTOL."""
+    limit = {"out": MIXER_RTOL, "gelu": XLSTM_GELU_RTOL}
+    return [k for k, v in e.items() if v > limit.get(k, state_limit)]
+
+
+def worst_of(errs: dict) -> dict:
+    """The largest of ``errs`` ({name: error}), named, and the logits'."""
+    k = max(errs, key=errs.get)
+    return {"worst": k, "err": errs[k], "logits": errs.get("logits")}
+
+
+def layer_worst(per_layer: list) -> dict:
+    """{reading: its largest over the layers} of :func:`mixer_errors`
+    dicts (the mixer kinds' states differ)."""
+    return {k: max(e[k] for e in per_layer if k in e)
+            for k in sorted(set().union(*per_layer))}
+
+
+def xlstm_route_readings(torch, run: dict, variants: dict,
+                         faults: dict | None = None) -> dict:
+    """The run's prompts prefilled on the run's config (the scan route),
+    its mixers tapped (:class:`mixer_tap`), and on each of ``variants``
+    ({name: config}) by the same model: each whole prefill against the
+    scan one (:func:`prefill_errors`), and each layer's mixer on the
+    variant's config fed the scan route's input to that layer, against
+    the scan route's result (no error carried over from the layers
+    before). ``faults`` ({name: (config, context)}) run the first mLSTM
+    layer so. Also returns the scan route's (logits, cache) and the tap's
+    calls. No limit is held here."""
+    from repro_torch.models import transformer as tf
+
+    cfg, model = run["cfg"], run["model"]
+    device = model.device.type
+    prompts = torch.from_numpy(run["prompts"]).to(model.device)
+    out = {"times": {}, "whole": {}, "per_layer": {n: [] for n in variants},
+           "planted": {}}
+    with torch.inference_mode():
+        with mixer_tap() as tap:
+            t = time.perf_counter()
+            out["scan"] = tf.prefill(model, cfg, prompts)
+            sync(torch, device)
+            out["times"]["scan"] = time.perf_counter() - t
+        for name, c in variants.items():
+            t = time.perf_counter()
+            other = tf.prefill(model, c, prompts)
+            sync(torch, device)
+            out["times"][name] = time.perf_counter() - t
+            out["whole"][name] = prefill_errors(torch, cfg, other,
+                                                out["scan"])
+            del other
+        for kind, p, h, want in tap.calls:
+            for name, c in variants.items():
+                out["per_layer"][name].append(mixer_errors(
+                    torch, xlstm_mixer(kind)[0](p, h, c, return_state=True),
+                    want))
+        kind, p, h, want = next(c for c in tap.calls if c[0] == "mlstm")
+        for name, (c, ctx) in (faults or {}).items():
+            with ctx:
+                out["planted"][name] = mixer_errors(
+                    torch, xlstm_mixer(kind)[0](p, h, c, return_state=True),
+                    want)
+    out["calls"] = tap.calls
+    return out
+
+
+def check_xlstm_routes(torch, run: dict, chunk: int = XLSTM_CHUNK) -> dict:
+    """The chunkwise route (``mlstm_chunk`` = ``chunk``) against the scan
+    route (the run's config) on the run's prompts
+    (:func:`xlstm_route_readings`). Layer by layer, each mixer fed the
+    scan route's input: the output within MIXER_RTOL and every state
+    within XLSTM_STATE_RTOL, and the chunkwise carry without decay_in,
+    planted in the first mLSTM layer, over a limit. The whole prefill:
+    the last logits and every layer's state within XLSTM_ROUTE_RTOL of
+    each tensor's largest magnitude. Returns the readings and the scan
+    route's (logits, cache)."""
+    import dataclasses
+
+    from repro_torch.nn import recurrent as rec
+
+    cfg = run["cfg"]
+    chunkwise = dataclasses.replace(cfg, mlstm_impl="chunkwise",
+                                    mlstm_chunk=chunk)
+    r = xlstm_route_readings(torch, run, {"chunkwise": chunkwise}, {
+        "carry without decay_in": (chunkwise, swapped(
+            rec, "_mlstm_chunk", carry_without_decay_in(rec._mlstm_chunk)))})
+    per_layer = r["per_layer"]["chunkwise"]
+    for i, e in enumerate(per_layer):
+        check(not over_limits(e, XLSTM_STATE_RTOL),
+              f"layer {i} chunkwise vs scan mixer: {e} (limits "
+              f"{MIXER_RTOL}, states {XLSTM_STATE_RTOL})")
+    missed = [n for n, e in r["planted"].items()
+              if not over_limits(e, XLSTM_STATE_RTOL)]
+    check(not missed, f"planted faults not caught: {r['planted']}")
+    whole = worst_of(r["whole"]["chunkwise"])
+    check(XLSTM_ROUTE_RTOL is None or whole["err"] <= XLSTM_ROUTE_RTOL,
+          f"chunkwise vs scan prefill: {whole} (limit {XLSTM_ROUTE_RTOL})")
+    return {"scan_prefill_s": r["times"]["scan"],
+            "chunkwise_prefill_s": r["times"]["chunkwise"],
+            "whole": whole, "layer_worst": layer_worst(per_layer),
+            "planted": r["planted"], "scan": r["scan"]}
+
+
+def time_xlstm_prefill(torch, cfg, batch: int, seq: int) -> dict:
+    """One prefill of ``batch`` x ``seq`` seeded tokens through a model of
+    ``cfg`` (random weights, seed SEED + 11): seconds (ending in a
+    synchronise), tokens/s and peak memory."""
+    import numpy as np
+
+    from repro_torch.models import transformer as tf
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 11)
+    model = tf.init_params(cfg, g, "cuda")
+    tokens = np.random.default_rng(SEED + 11).integers(
+        0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    x = torch.from_numpy(tokens).to(model.device)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        t = time.perf_counter()
+        logits, _ = tf.prefill(model, cfg, x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    check(tuple(logits.shape) == (batch, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"chunkwise prefill logits {tuple(logits.shape)}")
+    return {"batch": batch, "seq": seq, "layers": cfg.num_layers,
+            "prefill_s": wall, "tokens_per_s": batch * seq / wall,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+class palindromic_convs:
+    """Within ``with``, every convolution kernel of ``model`` reads the same
+    forwards and backwards, w[k] = (w[k] + w[W - 1 - k]) / 2; restored
+    after. The reference's decode step weights x[t - k] by w[W - 1 - k]
+    where its prefill weights it by w[k], so only with such kernels can a
+    decode continue a prefill."""
+
+    def __init__(self, torch, model):
+        self.torch = torch
+        self.convs = [p for n, p in model.named_parameters()
+                      if n.endswith("conv.w")]
+
+    def __enter__(self):
+        self.saved = [p.detach().clone() for p in self.convs]
+        with self.torch.no_grad():
+            for p in self.convs:
+                p.copy_((p + p.flip(0)) / 2)
+        return self
+
+    def __exit__(self, *exc):
+        with self.torch.no_grad():
+            for p, w in zip(self.convs, self.saved):
+                p.copy_(w)
+
+
+def conv_state_unshifted(real):
+    """``causal_conv_step`` that keeps its old state: every decode step
+    convolves with the prefill's last inputs."""
+    def step(p, x_t, state):
+        out, _ = real(p, x_t, state)
+        return out, state
+    return step
+
+
+def conv_unrounded(real):
+    """``causal_conv`` whose output is not rounded to its input's dtype."""
+    return lambda p, x: real(p, x.float())
+
+
+def mixer_continuation(torch, p, kind: str, cfg, h, prompt: int):
+    """The mixer's prefill of ``h[:, :prompt]``, then one decode step per
+    later position of ``h``: (the decode steps' outputs, the final
+    state)."""
+    fwd, dec = xlstm_mixer(kind)
+    _, state = fwd(p, h[:, :prompt], cfg, return_state=True)
+    ys = []
+    for t in range(prompt, h.shape[1]):
+        y, state = dec(p, h[:, t:t + 1], cfg, state)
+        ys.append(y)
+    return torch.cat(ys, dim=1), state
+
+
+def xlstm_continuity_readings(torch, run: dict, prompt: int, steps: int
+                              ) -> dict:
+    """Prefill ``prompt`` of the run's prompt tokens and decode ``steps``
+    more of them (fed the known tokens) against a prefill of ``prompt`` +
+    ``steps``, its mixers tapped, all with palindromic kernels
+    (:class:`palindromic_convs`): the whole model (the last logits and
+    every layer's state, :func:`prefill_errors`), and layer by layer on
+    the full prefill's inputs (:func:`mixer_continuation` against the
+    full prefill's outputs at the decoded positions and its final state).
+    Layer by layer also: against the mLSTM's full prefill with its
+    convolution left unrounded (the conv dtype quirk removed); the
+    decode's conv state left unshifted (a fault) and the random kernels
+    (the reversal) in the first mLSTM layer. No limit is held here."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.nn import recurrent as rec
+
+    cfg, model = run["cfg"], run["model"]
+    tokens = torch.from_numpy(run["prompts"][:, :prompt + steps]).to(
+        model.device)
+    out = {"per_layer": [], "unrounded": []}
+    with torch.inference_mode(), palindromic_convs(torch, model):
+        logits, cache = tf.prefill(model, cfg, tokens[:, :prompt])
+        for t in range(prompt, prompt + steps):
+            logits, cache = tf.decode_step(model, cfg, cache,
+                                           tokens[:, t:t + 1], t)
+        check(bool(torch.isfinite(logits).all()), "decode logits")
+        with mixer_tap() as tap:
+            full = tf.prefill(model, cfg, tokens)
+        out["whole"] = prefill_errors(torch, cfg, (logits, cache), full)
+        del full, cache
+        for kind, p, h, (y, st) in tap.calls:
+            got = mixer_continuation(torch, p, kind, cfg, h, prompt)
+            out["per_layer"].append(mixer_errors(torch, got,
+                                                 (y[:, prompt:], st)))
+            if kind == "mlstm":
+                with swapped(rec, "causal_conv",
+                             conv_unrounded(rec.causal_conv)):
+                    yu, su = rec.mlstm_forward(p, h, cfg, return_state=True)
+                out["unrounded"].append(mixer_errors(torch, got,
+                                                     (yu[:, prompt:], su)))
+        kind, p, h, (y, st) = next(c for c in tap.calls if c[0] == "mlstm")
+        with swapped(rec, "causal_conv_step",
+                     conv_state_unshifted(rec.causal_conv_step)):
+            out["conv state unshifted"] = mixer_errors(
+                torch, mixer_continuation(torch, p, kind, cfg, h, prompt),
+                (y[:, prompt:], st))
+    with torch.inference_mode():
+        y, st = rec.mlstm_forward(p, h, cfg, return_state=True)
+        out["reversed kernels"] = mixer_errors(
+            torch, mixer_continuation(torch, p, kind, cfg, h, prompt),
+            (y[:, prompt:], st))
+    return out
+
+
+def check_xlstm_continuity(torch, run: dict,
+                           prompt: int = XLSTM_CONT_PROMPT,
+                           steps: int = XLSTM_GEN) -> dict:
+    """:func:`xlstm_continuity_readings`, held: layer by layer the decode
+    steps' outputs within MIXER_RTOL and the final states within
+    XLSTM_CONT_RTOL (the conv dtype quirk: the decode's convolution is not
+    rounded to bf16 where the prefill's is), the unshifted conv state over
+    them; the whole model within XLSTM_CONT_WHOLE_RTOL. The random
+    kernels' gap (the reference's reversal) and the gap with the quirk
+    removed are reported."""
+    r = xlstm_continuity_readings(torch, run, prompt, steps)
+    for i, e in enumerate(r["per_layer"]):
+        check(not over_limits(e, XLSTM_CONT_RTOL),
+              f"layer {i} decode vs prefill: {e} (limits {MIXER_RTOL}, "
+              f"states {XLSTM_CONT_RTOL})")
+    check(bool(over_limits(r["conv state unshifted"], XLSTM_CONT_RTOL)),
+          f"planted fault not caught: {r['conv state unshifted']}")
+    whole = worst_of(r["whole"])
+    check(XLSTM_CONT_WHOLE_RTOL is None
+          or whole["err"] <= XLSTM_CONT_WHOLE_RTOL,
+          f"prefill + decode vs prefill: {whole} (limit "
+          f"{XLSTM_CONT_WHOLE_RTOL})")
+    return {"whole": whole, "layer_worst": layer_worst(r["per_layer"]),
+            "unrounded_worst": layer_worst(r["unrounded"]),
+            "conv state unshifted": r["conv state unshifted"],
+            "reversed kernels": r["reversed kernels"]}
+
+
+def swap_i_f(torch, step):
+    """``_slstm_step`` with the i and f gates swapped: their columns of
+    ``wx_t`` and of each head's ``r_gates`` trade places."""
+    def swapped_step(p_r, carry, wx_t):
+        def perm(t):
+            z, i, f, o = t.split(t.shape[-1] // 4, dim=-1)
+            return torch.cat([z, f, i, o], dim=-1)
+        return step(perm(p_r), carry, perm(wx_t))
+    return swapped_step
+
+
+def m_held_at_zero(i_pre, log_f, m):
+    """``_gates`` with the stabiliser held at 0."""
+    return m * 0, i_pre.exp(), (log_f + m).exp()
+
+
+def carry_without_decay_in(chunk):
+    """``_mlstm_chunk`` whose carry drops the previous chunk's C and n (no
+    decay_in term); the chunk's outputs stay right."""
+    def faulty(Cin, nin, m_in, *xs):
+        _, _, m, h = chunk(Cin, nin, m_in, *xs)
+        C, n, _, _ = chunk(Cin * 0, nin * 0, m_in, *xs)
+        return C, n, m, h
+    return faulty
+
+
+class gelu_tap:
+    """Within ``with``, ``nn.recurrent.gelu`` (whatever it is then) also
+    records its last input and output."""
+
+    def __init__(self):
+        from repro_torch.nn import recurrent as rec
+        self.rec = rec
+
+    def __enter__(self):
+        self.real = self.rec.gelu
+
+        def tapped(u):
+            self.u, self.out = u, self.real(u)
+            return self.out
+        self.rec.gelu = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.rec.gelu = self.real
+
+
+def gelu_tanh64(torch, u):
+    """The reference's gelu (``jax.nn.gelu``, the tanh form) in float64."""
+    import math
+
+    u = u.double()
+    return 0.5 * u * (1 + torch.tanh(math.sqrt(2 / math.pi)
+                                     * (u + 0.044715 * u ** 3)))
+
+
+def check_xlstm_mixers(torch, cfg, device: str = "cuda",
+                       batch: int = XLSTM_LAYER[0], seq: int = XLSTM_LAYER[1],
+                       chunk: int = XLSTM_CHUNK) -> dict:
+    """One layer of each mixer of ``cfg`` (random weights, seed SEED + 11,
+    as a serving model holds them) on a seeded (batch, seq, d_model) input
+    in the compute dtype: the mLSTM on the scan and the chunkwise route,
+    the sLSTM. Each is held against the same function computed with its
+    float32 arithmetic in float64 (a copy cast with ``.double()``: its
+    products and roundings to bf16 unchanged, see ``nn/recurrent.py``):
+    the output within MIXER_RTOL and every state within XLSTM_STATE_RTOL
+    of its largest magnitude; the sLSTM's gelu on its own inputs within
+    XLSTM_GELU_RTOL of the tanh form in float64. Faults planted in the
+    route under test alone: the mLSTM stabiliser m held at 0 and the
+    prefill's conv output left unrounded (scan route), the chunkwise carry
+    without decay_in, the sLSTM's i and f gates swapped and the exact
+    ``F.gelu``. Returns the readings; ``missed`` names the faults that no
+    limit caught (the caller decides)."""
+    import copy
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.nn import recurrent as rec
+    from repro_torch.nn.layers import compute_dtype
+
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED + 11)
+    model = tf.init_params(dataclasses.replace(cfg, num_layers=2), g, device)
+    x = torch.randn((batch, seq, cfg.d_model), generator=g,
+                    device=device).to(compute_dtype(device))
+    mixers = {k: b.mixer for b, k in model.blocks()}
+    del model
+    scan = dataclasses.replace(cfg, mlstm_impl="scan", mlstm_chunk=0)
+    chunkwise = dataclasses.replace(cfg, mlstm_impl="chunkwise",
+                                    mlstm_chunk=chunk)
+    cases = {"mLSTM scan": ("mlstm", scan, {
+                 "m held at 0": swapped(rec, "_gates", m_held_at_zero),
+                 "prefill conv unrounded": swapped(
+                     rec, "causal_conv", conv_unrounded(rec.causal_conv))}),
+             "mLSTM chunkwise": ("mlstm", chunkwise, {
+                 "carry without decay_in": swapped(
+                     rec, "_mlstm_chunk",
+                     carry_without_decay_in(rec._mlstm_chunk))}),
+             "sLSTM": ("slstm", cfg, {
+                 "i and f swapped": swapped(rec, "_slstm_step",
+                                            swap_i_f(torch, rec._slstm_step)),
+                 "exact F.gelu": swapped(rec, "gelu", F.gelu)})}
+
+    def run(p, kind, c):
+        with torch.inference_mode(), gelu_tap() as tap:
+            got = xlstm_mixer(kind)[0](p, x, c, return_state=True)
+        e = {"gelu": max_rel_err(torch, tap.out, gelu_tanh64(torch, tap.u))
+             } if kind == "slstm" else {}
+        return got, e
+
+    out = {"cases": {}, "planted": {}, "missed": []}
+    for name, (kind, c, faults) in cases.items():
+        p = mixers[kind]
+        want, _ = run(copy.deepcopy(p).double(), kind, c)
+        got, extra = run(p, kind, c)
+        e = {**mixer_errors(torch, got, want), **extra}
+        check(not over_limits(e, XLSTM_STATE_RTOL),
+              f"{name} vs float64: {e} (limits out {MIXER_RTOL}, states "
+              f"{XLSTM_STATE_RTOL}, gelu {XLSTM_GELU_RTOL})")
+        out["cases"][name] = e
+        for fault, ctx in faults.items():
+            with ctx:
+                bad, extra = run(p, kind, c)
+            e = {**mixer_errors(torch, bad, want), **extra}
+            out["planted"][f"{name}: {fault}"] = e
+            if not over_limits(e, XLSTM_STATE_RTOL):
+                out["missed"].append(f"{name}: {fault}")
+        del want, got
+    sync(torch, device)
+    return out
+
+
+def train_xlstm(torch) -> dict:
+    """Phase 11's training: ``check_fits`` passes the full 48-layer model;
+    ``launch.train.run`` on xlstm-1.3b at full width, XLSTM_TRAIN_LAYERS
+    deep, on the chunkwise route (chunk XLSTM_CHUNK), XLSTM_TRAIN_WARMUP +
+    XLSTM_TRAIN_STEPS steps of TRAIN_BATCH x XLSTM_TRAIN_SEQ Markov tokens
+    (:func:`train_model`: the first loss within FIRST_LOSS_TOL of
+    ln(50304))."""
+    import gc
+
+    from repro_torch.launch import train as ptrain
+
+    full = xlstm_config()
+    ptrain.check_fits(full, torch.device("cuda"))
+    cfg = xlstm_config("chunkwise", XLSTM_CHUNK, XLSTM_TRAIN_LAYERS)
+    run = train_model(torch, cfg, seq=XLSTM_TRAIN_SEQ,
+                      warmup=XLSTM_TRAIN_WARMUP, steps=XLSTM_TRAIN_STEPS)
+    out = {k: run[k] for k in ("losses", "times", "step_s", "tokens_per_s",
+                               "peak_gib", "params", "wall_s")}
+    out["full_state_gb"] = 16 * full.param_count() / 1e9
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_xlstm_family(torch) -> dict:
+    """Phase 11: xlstm-1.3b at full width and depth, random weights (seed
+    0) as a serving model holds them, through ``Server.generate`` on the
+    scan route (:func:`serve_model`; no kernel launched); the cell steps'
+    costs; the chunkwise route against the scan route, then the decode
+    steps and one layer of each kind profiled; the chunkwise prefill at
+    XLSTM_LONG; continuity; one layer of each mixer against float64 with
+    planted faults; training. Every check fails the run, a missed planted
+    fault too."""
+    import gc
+
+    out: dict = {}
+    cfg = xlstm_config()
+    torch.cuda.reset_peak_memory_stats()
+    run = serve_model(torch, cfg, requests=XLSTM_REQUESTS,
+                      prompt=XLSTM_PROMPT, gen=XLSTM_GEN)
+    check(not any(run["counts"].values()),
+          f"xlstm launched kernels: {run['counts']}")
+    tm = run["timings"]
+    out["serve"] = {"params": run["params"], "init_s": run["init_s"],
+                    "prefill_s": tm["prefill_s"],
+                    "decode_ms": tm["decode_s"] * 1e3 / XLSTM_GEN,
+                    "decode_tokens_per_s": XLSTM_REQUESTS * XLSTM_GEN
+                    / tm["decode_s"],
+                    "generate_peak_gib": run["peak_gib"],
+                    "out_head": run["out"][0, :8].tolist()}
+    out["bound"] = decode_bound(run["model"], cfg, XLSTM_REQUESTS,
+                                XLSTM_PROMPT, XLSTM_GEN)
+    out["steps"] = xlstm_step_costs(torch, cfg, XLSTM_REQUESTS)
+    t = time.perf_counter()
+    out["routes"] = check_xlstm_routes(torch, run)
+    out["routes"]["check_s"] = time.perf_counter() - t
+    out["split"] = xlstm_time_split(torch, run, out["routes"].pop("scan"))
+    t = time.perf_counter()
+    out["continuity"] = check_xlstm_continuity(torch, run)
+    out["continuity"]["check_s"] = time.perf_counter() - t
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["long"] = time_xlstm_prefill(
+        torch, xlstm_config("chunkwise", XLSTM_CHUNK, XLSTM_LONG_LAYERS),
+        *XLSTM_LONG)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["mixers"] = check_xlstm_mixers(torch, cfg)
+    out["mixers"]["check_s"] = time.perf_counter() - t
+    check(not out["mixers"]["missed"],
+          f"planted faults not caught: {out['mixers']['missed']} "
+          f"{out['mixers']['planted']}")
+    out["train"] = train_xlstm(torch)
+    return out
+
+
+def log_xlstm(x: dict, card: str) -> None:
+    """Phase 11's lines, each with the card's name and power limit."""
+    sv, bd, split = x["serve"], x["bound"], x["split"]
+    dec = split["decode"]
+    log(f"phase 11 {XLSTM_ARCH}: 48 layers (no cut), {sv['params']} "
+        f"parameters built in {sv['init_s']:.3f} s; {XLSTM_REQUESTS} x "
+        f"{XLSTM_PROMPT} prompt + {XLSTM_GEN} decode steps on the scan route"
+        f": prefill {sv['prefill_s']:.3f} s, decode {sv['decode_ms']:.3f} ms"
+        f" per step ({sv['decode_tokens_per_s']:.1f} tokens/s) against a "
+        f"bound of {bd['bound_ms']:.3f} ms ({bd['weight_bytes']} weight "
+        f"bytes + {bd['state_bytes']} state bytes read and written a step "
+        f"at 3.35 TB/s); profiled decode: {dec.get('launches')} launches a "
+        f"step, device {dec.get('device_ms')} ms, busy "
+        f"{dec.get('busy_share')}; peak device memory "
+        f"{sv['generate_peak_gib']:.3f} GiB in generate; first tokens "
+        f"{sv['out_head']} [{card}]")
+    for name, c in x["steps"].items():
+        log(f"phase 11 one {name} at full width, B = {XLSTM_REQUESTS}: "
+            f"{c['launches']:.1f} launches, host {c['host_ms']:.4f} ms, "
+            f"device {c['device_ms']:.4f} ms [{card}]")
+    log(f"phase 11 time split (decode, and one layer of each kind's "
+        f"prefill): {json.dumps(split)} [{card}]")
+    r = x["routes"]
+    log(f"phase 11 chunkwise (chunk {XLSTM_CHUNK}) vs scan prefill of "
+        f"{XLSTM_REQUESTS} x {XLSTM_PROMPT}: scan {r['scan_prefill_s']:.3f} "
+        f"s, chunkwise {r['chunkwise_prefill_s']:.3f} s; layer by layer "
+        f"worst {json.dumps(r['layer_worst'])} (limits {MIXER_RTOL}, states "
+        f"{XLSTM_STATE_RTOL}); planted {json.dumps(r['planted'])}; whole "
+        f"prefill {json.dumps(r['whole'])} (limit {XLSTM_ROUTE_RTOL}); "
+        f"{r['check_s']:.3f} s [{card}]")
+    c = x["continuity"]
+    log(f"phase 11 continuity, prefill {XLSTM_CONT_PROMPT} + {XLSTM_GEN} "
+        f"decode steps vs prefill {XLSTM_CONT_PROMPT + XLSTM_GEN} with "
+        f"palindromic kernels: {json.dumps(c)} (limits layer by layer "
+        f"{MIXER_RTOL}, states {XLSTM_CONT_RTOL}; whole "
+        f"{XLSTM_CONT_WHOLE_RTOL}) [{card}]")
+    lg = x["long"]
+    log(f"phase 11 chunkwise prefill {lg['batch']} x {lg['seq']} through "
+        f"{lg['layers']} layers (reduced: num_layers 48 -> "
+        f"{XLSTM_LONG_LAYERS} for this timing): {lg['prefill_s']:.3f} s, "
+        f"{lg['tokens_per_s']:.1f} tokens/s, peak {lg['peak_gib']:.3f} GiB "
+        f"[{card}]")
+    m = x["mixers"]
+    log(f"phase 11 one layer of each mixer (B x S = {XLSTM_LAYER}) vs "
+        f"float64: {json.dumps(m['cases'])} (limits out {MIXER_RTOL}, "
+        f"states {XLSTM_STATE_RTOL}, gelu {XLSTM_GELU_RTOL}); planted "
+        f"{json.dumps(m['planted'])}; missed {m['missed']}; "
+        f"{m['check_s']:.3f} s [{card}]")
+    tr = x["train"]
+    log(f"phase 11 train {XLSTM_ARCH} cut to {XLSTM_TRAIN_LAYERS} layers "
+        f"({tr['params']} parameters; the full model's 16 bytes a "
+        f"parameter {tr['full_state_gb']:.1f} GB pass check_fits), chunkwise"
+        f", {XLSTM_TRAIN_WARMUP} + {XLSTM_TRAIN_STEPS} steps of "
+        f"{TRAIN_BATCH} x {XLSTM_TRAIN_SEQ} tokens: losses "
+        + " ".join(f"{v:.4f}" for v in tr["losses"])
+        + "; step s " + " ".join(f"{v:.3f}" for v in tr["times"])
+        + f"; median timed step {tr['step_s']:.3f} s, "
+        f"{tr['tokens_per_s']:.1f} tokens/s; peak device memory "
+        f"{tr['peak_gib']:.3f} GiB; run {tr['wall_s']:.3f} s [{card}]")
+
 
 def main() -> int:
     root = pathlib.Path(__file__).resolve().parent
@@ -3743,6 +4505,9 @@ def main() -> int:
     t = time.perf_counter()
     serve_moe_family(torch, rows)
     log(f"phase 10 the MoE family: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    log_xlstm(serve_xlstm_family(torch), card)
+    log(f"phase 11 the xLSTM family: {time.perf_counter() - t:.3f} s")
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"
                     or m.startswith("repro."))

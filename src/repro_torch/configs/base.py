@@ -5,8 +5,7 @@ Every architecture is described by one :class:`ModelConfig`. A config is
 kinds), the FFN kind and the attention details; ``models/transformer.py``
 instantiates it. The dataclass, ``reduced`` and the registry functions are
 the reference's, field for field, so a config means the same model in both
-packages. The registry holds only the architectures the port can run; the
-others name the ROADMAP item they wait for.
+packages, and the registry holds the reference's ten architectures.
 """
 from __future__ import annotations
 
@@ -201,19 +200,9 @@ def register(cfg: ModelConfig) -> ModelConfig:
     return cfg
 
 
-# architectures of the reference the port cannot run yet, and the ROADMAP
-# item (section 2) each waits for
-UNPORTED = {
-    "xlstm-1.3b": "the xLSTM family (mLSTM/sLSTM mixers)",
-}
-
-
 def get_config(name: str) -> ModelConfig:
     if not _REGISTRY:
         _load_all()
-    if name in UNPORTED:
-        raise KeyError(f"{name!r} is not ported yet: it waits for "
-                       f"{UNPORTED[name]}, ROADMAP.md section 2")
     return _REGISTRY[name]
 
 
@@ -228,7 +217,7 @@ def _load_all() -> None:
     from repro_torch.configs import (  # noqa: F401
         gemma3_27b, internvl2_76b, mixtral_8x22b, musicgen_medium,
         phi3_5_moe, qwen1_5_110b, qwen2_5_14b, recurrentgemma_2b,
-        starcoder2_7b,
+        starcoder2_7b, xlstm_1_3b,
     )
 
 

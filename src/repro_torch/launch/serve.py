@@ -5,7 +5,8 @@ The server reads model weights from the newest checkpoint *snapshot*
 (never blocking the trainer that produces them) and answers batched
 generation requests. On a card the prefill runs the ``lru_scan`` kernel in
 every RG-LRU layer and the ``flash_attention`` kernel in every attention
-layer; MoE feed-forwards (``nn/moe.py``) and decode are plain tensor code.
+layer; MoE feed-forwards (``nn/moe.py``), the xLSTM's mLSTM and sLSTM
+mixers and decode are plain tensor code.
 ``Server.generate`` takes token prompts only, as the reference's does; a
 frames model (``embed_mode="frames"``) is driven through
 ``models.transformer.prefill`` and ``launch.steps.make_decode_step``.

@@ -4,14 +4,17 @@ The block *pattern* (the repeating unit of mixer kinds) is an
 ``nn.ModuleDict`` of blocks ``b{i}``; the model holds ``num_units`` of them
 in a ``ModuleList`` walked by a Python loop (the reference stacks their
 parameters on a leading axis and scans), then a tail of
-``num_layers % len(pattern)`` blocks named ``tail{i}``. The port runs the
-attention kinds and ``rglru`` with ``mlp`` or MoE (``nn/moe.py``)
-feed-forwards, optionally with post-block ("sandwich") norms; other kinds
-raise. Inputs are (B, S) token ids or, with ``embed_mode="frames"``, (B, S,
-D) frames (precomputed embeddings; the model then has no ``embed`` table).
+``num_layers % len(pattern)`` blocks named ``tail{i}``. The port runs every
+mixer kind of the reference: the attention kinds and ``rglru`` with
+``mlp`` or MoE (``nn/moe.py``) feed-forwards, optionally with post-block
+("sandwich") norms, and the xLSTM's ``mlstm`` and ``slstm``, which carry
+their own projections and have no feed-forward. Inputs are (B, S) token
+ids or, with ``embed_mode="frames"``, (B, S, D) frames (precomputed
+embeddings; the model then has no ``embed`` table).
 
-A model is built for serving (bf16 frozen weights on a card, but for the
-float32 norm scales, biases and MoE routers) or, with
+A model is built for serving (bf16 frozen weights on a card, but for what
+the reference reads in float32: norm scales, biases, MoE routers and the
+recurrent mixers' convolutions, gates and per-head products) or, with
 ``trainable=True``, for training: every parameter in ``cfg.param_dtype``
 (float32 master weights) with ``requires_grad``.
 
@@ -49,15 +52,6 @@ from repro_torch.nn.layers import (MLP, Norm, apply_norm,
                                    sinusoidal_positions_dynamic, weight_dtype)
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    kinds = set(cfg.pattern) | set(cfg.tail_pattern)
-    bad = sorted(k for k in kinds if k not in ATTN_KINDS and k != "rglru")
-    if bad:
-        raise NotImplementedError(
-            f"{cfg.name}: mixer kinds {bad} are not ported (ROADMAP.md "
-            "section 2, the xLSTM family)")
-
-
 def _has_ffn(cfg: ModelConfig, kind: str) -> bool:
     return cfg.ffn != "none" and (kind in ATTN_KINDS or kind == "rglru")
 
@@ -77,6 +71,10 @@ class Block(nn.Module):
             self.mixer = attn.Attention(cfg, device, t)
         elif kind == "rglru":
             self.mixer = rec.RGLRU(cfg, device, t)
+        elif kind == "mlstm":
+            self.mixer = rec.MLSTM(cfg, device, t)
+        elif kind == "slstm":
+            self.mixer = rec.SLSTM(cfg, device, t)
         else:
             raise ValueError(kind)
         if cfg.sandwich_norm:
@@ -98,7 +96,6 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device, trainable: bool = False):
         super().__init__()
-        _check_supported(cfg)
         self.cfg = cfg
         t = trainable
         wd = weight_dtype(cfg, device, t)
@@ -130,7 +127,8 @@ class Transformer(nn.Module):
 
 # weights the reference initialises from N(0, 0.02); the rest are constants
 _RANDOM = {"embed", "lm_head", "wq", "wk", "wv", "wo", "in_x", "in_gate",
-           "w", "w_ig", "w_rg", "out", "w1", "w2", "w3", "router"}
+           "w", "w_ig", "w_rg", "out", "w1", "w2", "w3", "router", "up",
+           "w_if", "down", "w_gates", "r_gates", "up1", "up2"}
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -195,11 +193,16 @@ def apply_block(p: Block, x, cfg: ModelConfig, kind: str, positions,
             pad = capacity - x.shape[1]
             cache = {"k": F.pad(kv["k"], (0, 0, 0, pad)),
                      "v": F.pad(kv["v"], (0, 0, 0, pad))}
-    elif capacity is None:
-        h = rec.rglru_forward(p.mixer, h, cfg, use_kernel=use_kernel)
     else:
-        h, cache = rec.rglru_forward(p.mixer, h, cfg, use_kernel=use_kernel,
-                                     return_state=True)
+        state = capacity is not None
+        if kind == "rglru":
+            out = rec.rglru_forward(p.mixer, h, cfg, use_kernel=use_kernel,
+                                    return_state=state)
+        elif kind == "mlstm":
+            out = rec.mlstm_forward(p.mixer, h, cfg, return_state=state)
+        else:
+            out = rec.slstm_forward(p.mixer, h, cfg, return_state=state)
+        h, cache = out if state else (out, None)
     x, aux = _ffn_residual(p, _mixer_residual(p, x, h, cfg), cfg, kind)
     return x, cache, aux
 
@@ -303,6 +306,10 @@ def _block_cache(cfg: ModelConfig, kind: str, batch, capacity, device):
         return attn.init_kv_cache(cfg, batch, capacity, device)
     if kind == "rglru":
         return rec.init_rglru_cache(cfg, batch, device)
+    if kind == "mlstm":
+        return rec.init_mlstm_cache(cfg, batch, device)
+    if kind == "slstm":
+        return rec.init_slstm_cache(cfg, batch, device)
     raise ValueError(kind)
 
 
@@ -357,7 +364,9 @@ def _decode_block(p: Block, c, x, cfg: ModelConfig, kind: str, pos: int):
     if kind in ATTN_KINDS:
         h, c = attn.attn_decode(p.mixer, h, cfg, kind, c, pos)
     else:
-        h, c = rec.rglru_decode(p.mixer, h, cfg, c)
+        decode = {"rglru": rec.rglru_decode, "mlstm": rec.mlstm_decode,
+                  "slstm": rec.slstm_decode}[kind]
+        h, c = decode(p.mixer, h, cfg, c)
     x, _ = _ffn_residual(p, _mixer_residual(p, x, h, cfg), cfg, kind)
     return x, c
 

@@ -638,3 +638,77 @@ def test_moe_dropping_is_bit_stable_on_card(cuda_device):
         four, _ = moe.moe_dropping(p, x, dataclasses.replace(high,
                                                              moe_groups=4))
     assert _rel_err(one, dense) <= 1e-2 and _rel_err(four, one) <= 1e-2
+
+
+def _xlstm_on_card(cuda_device, **overrides):
+    """Reduced xlstm-1.3b, 4 layers at d_model 256 (mLSTM hd 128, sLSTM
+    hd 64), random weights (seed 0) on the card as a serving model holds
+    them, and (2, 64) seeded prompts."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import transformer as tf
+
+    cfg = reduced(get_config("xlstm-1.3b"), num_layers=4, d_model=256,
+                  **overrides)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    model = tf.init_params(cfg, gen, cuda_device)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32)
+    return cfg, model, prompts
+
+
+def test_xlstm_routes_agree_on_card(cuda_device):
+    """The chunkwise route (chunk 16) against the scan route on the card:
+    the last logits and every layer's state within chip_smoke.py's
+    XLSTM_ROUTE_RTOL, and no kernel launched (the family has none)."""
+    from _torch_parity import load_chip_smoke
+
+    cs = load_chip_smoke()
+    cfg, model, prompts = _xlstm_on_card(cuda_device)
+    ops.reset_launch_counts()
+    routes = cs.check_xlstm_routes(torch, {"cfg": cfg, "model": model,
+                                           "prompts": prompts}, chunk=16)
+    assert routes["whole"]["err"] <= cs.XLSTM_ROUTE_RTOL
+    assert routes["layer_worst"]["out"] <= cs.MIXER_RTOL
+    assert not any(ops.launch_counts().values())
+
+
+def test_xlstm_prefill_and_decode_are_continuous_on_card(cuda_device):
+    """Prefill 56 and decode 8 against a prefill of 64 on the card, with
+    palindromic convolution kernels (chip_smoke.py phase 11 (d)): layer
+    by layer within MIXER_RTOL and XLSTM_CONT_RTOL, the whole model within
+    XLSTM_CONT_WHOLE_RTOL, the unshifted conv state over them."""
+    from _torch_parity import load_chip_smoke
+
+    cs = load_chip_smoke()
+    cfg, model, prompts = _xlstm_on_card(cuda_device)
+    cont = cs.check_xlstm_continuity(
+        torch, {"cfg": cfg, "model": model, "prompts": prompts}, prompt=56,
+        steps=8)
+    assert cont["whole"]["err"] <= cs.XLSTM_CONT_WHOLE_RTOL
+    assert cs.over_limits(cont["conv state unshifted"], cs.XLSTM_CONT_RTOL)
+
+
+def test_xlstm_card_holds_to_the_cpu_result(cuda_device):
+    """The card's prefill (bf16 compute) against the plain CPU one
+    (float32) on the same weights, on both mLSTM routes: the last logits
+    and every layer's state within 5e-2 of each tensor's largest
+    magnitude."""
+    from _torch_parity import load_chip_smoke
+    from repro_torch.models import params as mp
+    from repro_torch.models import transformer as tf
+
+    cs = load_chip_smoke()
+    for impl, chunk in (("scan", 0), ("chunkwise", 16)):
+        cfg, model, prompts = _xlstm_on_card(cuda_device, mlstm_impl=impl,
+                                             mlstm_chunk=chunk)
+        host = mp.from_reference(mp.to_reference(model), cfg, "cpu")
+        with torch.inference_mode():
+            got = tf.prefill(model, cfg, torch.from_numpy(prompts).to(
+                cuda_device))
+            want = tf.prefill(host, cfg, torch.from_numpy(prompts))
+        got = (got[0].cpu(), {k: v if not isinstance(v, list) else [
+            {b: {n: t.cpu() for n, t in c.items()} for b, c in u.items()}
+            for u in v] for k, v in got[1].items()})
+        errs = cs.prefill_errors(torch, cfg, got, want)
+        assert max(errs.values()) <= 5e-2, (impl, errs)

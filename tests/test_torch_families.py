@@ -36,7 +36,7 @@ from repro.launch import steps as jsteps  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 from repro.nn import layers as jlayers  # noqa: E402
 from _torch_parity import load_chip_smoke  # noqa: E402
-from repro_torch.configs import UNPORTED, get_config, reduced  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.launch import serve, steps  # noqa: E402
 from repro_torch.models import params as mp  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
@@ -125,17 +125,13 @@ def _caches_close(got, want, cfg, what):
 
 # ------------------------------------------------------------------ configs
 @pytest.mark.parametrize("arch", ARCHS + ("mixtral-8x22b",
-                                          "phi3.5-moe-42b-a6.6b"))
+                                          "phi3.5-moe-42b-a6.6b",
+                                          "xlstm-1.3b"))
 def test_config_equals_reference(arch):
     assert dataclasses.asdict(get_config(arch)) \
         == dataclasses.asdict(ref_get_config(arch))
     jcfg, cfg = _cfgs(arch)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
-    assert arch not in UNPORTED
-
-
-def test_unported_holds_the_xlstm_family():
-    assert sorted(UNPORTED) == ["xlstm-1.3b"]
 
 
 def test_reduced_shapes():

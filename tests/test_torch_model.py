@@ -21,6 +21,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.configs import all_configs as ref_all_configs  # noqa: E402
 from repro.configs import get_config as ref_get_config  # noqa: E402
 from repro.configs import reduced as ref_reduced  # noqa: E402
 from repro.launch import serve as jserve  # noqa: E402
@@ -29,7 +30,7 @@ from repro.models import transformer as jtf  # noqa: E402
 from repro.nn import layers as jlayers  # noqa: E402
 from repro.nn import rope as jrope  # noqa: E402
 from repro.train.checkpoint import CheckpointManager  # noqa: E402
-from repro_torch.configs import UNPORTED, get_config, reduced  # noqa: E402
+from repro_torch.configs import all_configs, get_config, reduced  # noqa: E402
 from repro_torch.launch import serve, steps  # noqa: E402
 from repro_torch.models import params as mp  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
@@ -68,16 +69,25 @@ def test_configs_match_reference():
     assert (cfg.num_units, tuple(cfg.tail_pattern)) == (1, ("rglru", "rglru"))
 
 
-@pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_configs_name_their_roadmap_item(name):
-    ref_get_config(name)                      # the reference has it
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config(name)
+@pytest.mark.parametrize("name", sorted(ref_all_configs()))
+def test_registry_equals_reference(name):
+    """The port's registry holds the reference's ten architectures, each
+    config equal field for field."""
+    assert sorted(all_configs()) == sorted(ref_all_configs())
+    assert len(all_configs()) == 10
+    assert dataclasses.asdict(get_config(name)) \
+        == dataclasses.asdict(ref_get_config(name))
 
 
-def test_unsupported_mixer_raises():
-    cfg = dataclasses.replace(reduced(get_config(ARCH)), pattern=("mlstm",))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unknown_mixer_raises_in_both_packages():
+    """A mixer kind neither package knows is refused with ValueError by
+    both models."""
+    cfg = dataclasses.replace(reduced(get_config(ARCH)), pattern=("mamba",))
+    jcfg = dataclasses.replace(ref_reduced(ref_get_config(ARCH)),
+                               pattern=("mamba",))
+    with pytest.raises(ValueError, match="mamba"):
+        jtf.init_params(jcfg, jax.random.PRNGKey(0))
+    with pytest.raises(ValueError, match="mamba"):
         tf.Transformer(cfg, "meta")
 
 
