@@ -183,11 +183,13 @@ before the result lines:
    and the whole prefill within ``XLSTM_ROUTE_RTOL``; then the decode
    steps and one layer of each kind's prefill profiled (busy share).
    Continuity on palindromic convolution kernels (the reference's decode
-   reverses the kernel): prefill 128 and decode 32 of the prompt's next
-   tokens against a prefill of 160, layer by layer (``MIXER_RTOL``,
-   states ``XLSTM_CONT_RTOL``; the decode's conv state left unshifted
-   over them; the random kernels' gap and the gap without the prefill's
-   conv rounding reported) and whole (``XLSTM_CONT_WHOLE_RTOL``). A
+   reverses the kernel): prefill 256 and decode 32 of the prompt's next
+   tokens against a prefill of 288, layer by layer
+   (``XLSTM_CONT_OUT_RTOL``, states ``XLSTM_CONT_RTOL``; the decode's
+   outputs kept to 4 bits in each layer and its conv state left
+   unshifted over them; the random kernels' gap and the gap without the
+   prefill's conv rounding reported) and whole
+   (``XLSTM_CONT_WHOLE_RTOL``). A
    chunkwise prefill of 4 x 4096 through 4 layers, timed. One full-width
    layer of each mixer (1 x 256) against the same function with its
    float32 arithmetic in float64: the output within ``MIXER_RTOL``, the
@@ -200,6 +202,22 @@ before the result lines:
    on the chunkwise route, 1 + 2 steps of 2 x 2048 tokens, the first loss
    within 1 of ln(50304). Every line carries the card's name and power
    limit; the kernels line is unchanged.
+12. The dry-run, sharding rules and elastic restart on the card. (a)
+   ``recurrentgemma-2b`` at full width cut to one unit (3 layers; 26
+   layers' float32 params, m and v are a checkpoint of about 40 GB, one
+   unit's 18.5 GB) trains through ``launch.train.run`` 2 steps of 2 x
+   4096 with a checkpoint at step 2 (its bytes and save seconds
+   printed), and 2 more steps: the uninterrupted run.
+   ``train.elastic.elastic_restart`` restores snapshot(2) onto the CPU,
+   bit-equal to the card's state at step 2, and onto the card, where 2
+   steps must give the uninterrupted losses exactly at batch indices 2
+   and 3, with ``launches_per_step``'s kernel launches each step, every
+   attention launch forward and backward on ``wgmma``. (b) The dry-run's
+   count (``launch.dryrun.count_step``, meta tensors standing for the
+   card) of phase 5's prefill and phase 8c's step: the predicted peak
+   within ``PEAK_RTOL`` of the measured one (less what earlier phases left
+   allocated), the predicted flops and bytes and the roofline row beside
+   the measured time. Nothing of phases 5 and 8c is run again.
 
 Phase 2 also holds the model kernels against their plain versions at the
 slice's shapes: ``lru_scan`` at (8, 4096, 2560) with and without ``h0``,
@@ -363,7 +381,7 @@ XLSTM_CHUNK = 64
 XLSTM_LONG = (4, 4096)
 XLSTM_LONG_LAYERS = 4
 XLSTM_LAYER = (1, 256)                # B x S of the one-layer checks
-XLSTM_CONT_PROMPT = 128               # the continuity check's prompt
+XLSTM_CONT_PROMPT = 256               # the continuity check's prompt
 XLSTM_STEP_REPS = 50                  # calls timed of one cell step
 # Limits. Layer by layer, each mixer fed the same input: one full-width
 # layer against the same function with its float32 arithmetic in float64
@@ -383,6 +401,13 @@ XLSTM_GELU_RTOL = 1e-6
 # is not rounded to bf16 where the prefill's is, up to 2^-9 of the mLSTM's
 # q and k over the last 32 steps
 XLSTM_CONT_RTOL = 1e-2
+# and the decode steps' outputs: MIXER_RTOL, stated first, was met with no
+# room at P = 256 (1.00e-2, one layer); this is the rule's limit below
+# from tools/probe_phase11.py's readings at P = 256 on an H100: the
+# geometric mean of the largest layer's gap (1.00e-2) and the smallest
+# layer's control, the decode's outputs kept to 4 significant bits
+# (3.54e-2), to 3 figures. Every layer's control must exceed it.
+XLSTM_CONT_OUT_RTOL = 1.88e-2
 # The whole prefill, chunkwise route against the scan route (the logits
 # and every layer's state, relative to each tensor's largest magnitude),
 # and the whole model's prefill + decode against its prefill: 5e-2 and
@@ -391,13 +416,22 @@ XLSTM_CONT_RTOL = 1e-2
 # float64 arithmetic's does (0.368). Each is set by the rule in PERF.md
 # on tools/probe_phase11.py's readings on an H100: the geometric mean of
 # the largest sound reading (the chunkwise route's 0.412; the palindromic
-# continuity gap at P = 128, 0.438) and the control, each mixer's output
-# kept to 4 significant bits (1.511), to 3 figures
+# continuity gap at XLSTM_CONT_PROMPT = 256, 0.601) and the control, each
+# mixer's output kept to 4 significant bits (1.511), to 3 figures
 XLSTM_ROUTE_RTOL = 7.89e-1
-XLSTM_CONT_WHOLE_RTOL = 8.14e-1
+XLSTM_CONT_WHOLE_RTOL = 9.53e-1
 # training: full width, cut to 4 layers (2 mLSTM, 2 sLSTM), chunkwise
 XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_SEQ = 4, 2048
 XLSTM_TRAIN_WARMUP, XLSTM_TRAIN_STEPS = 1, 2
+# phase 12: the elastic restart at full width, recurrentgemma-2b cut to one
+# pattern unit (3 layers: 2 RG-LRU, 1 local attention): 26 layers' float32
+# params, m and v make a checkpoint of about 40 GB, one unit's 18.5 GB;
+# ELASTIC_STEPS steps of TRAIN_BATCH x TRAIN_SEQ before the checkpoint and
+# as many after it
+ELASTIC_LAYERS, ELASTIC_STEPS = 3, 2
+# the dry-run's predicted peak against the peak measured on the card
+# (phase 5's serving run, phase 8c's training run), relative
+PEAK_RTOL = 5e-2
 
 
 # one-element int16 fills that open each profiler window, and the name of
@@ -1207,6 +1241,7 @@ def serve_model(torch, cfg, device: str = "cuda",
         server = Server(cfg, model)
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated() if device == "cuda" else 0
     ops.reset_launch_counts()
     with attention_shapes() as shapes:
         if frames:
@@ -1240,6 +1275,11 @@ def serve_model(torch, cfg, device: str = "cuda",
            "init_s": init_s, "timings": timings,
            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
                         if on_card else None),
+           # allocated at the reset: the weights and what earlier phases
+           # left
+           "base_bytes": base_bytes,
+           "weight_bytes": sum(p.numel() * p.element_size()
+                               for p in model.parameters()),
            "params": sum(p.numel() for p in model.parameters())}
     if frames:
         run["step_frames"] = step_frames
@@ -2518,6 +2558,8 @@ def train_model(torch, cfg, device: str = "cuda", batch: int = TRAIN_BATCH,
     if on_card:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+    # allocated at the reset: what earlier phases left
+    base_bytes = torch.cuda.memory_allocated() if on_card else 0
     ops.reset_launch_counts()
     t = time.perf_counter()
     losses, state = ptrain.run(cfg, steps=steps_n, batch=batch, seq=seq,
@@ -2549,6 +2591,7 @@ def train_model(torch, cfg, device: str = "cuda", batch: int = TRAIN_BATCH,
             "bwd_routes": bwd_routes,
             "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
                          if on_card else None),
+            "base_bytes": base_bytes,
             "params": sum(p.numel() for p in state["params"].parameters())}
 
 
@@ -3728,10 +3771,11 @@ def mixer_errors(torch, got, want) -> dict:
     return e
 
 
-def over_limits(e: dict, state_limit: float) -> list:
-    """The readings of ``e`` over their limit: the output MIXER_RTOL, the
-    states ``state_limit``, the sLSTM's gelu XLSTM_GELU_RTOL."""
-    limit = {"out": MIXER_RTOL, "gelu": XLSTM_GELU_RTOL}
+def over_limits(e: dict, state_limit: float,
+                out_limit: float = MIXER_RTOL) -> list:
+    """The readings of ``e`` over their limit: the output ``out_limit``,
+    the states ``state_limit``, the sLSTM's gelu XLSTM_GELU_RTOL."""
+    limit = {"out": out_limit, "gelu": XLSTM_GELU_RTOL}
     return [k for k, v in e.items() if v > limit.get(k, state_limit)]
 
 
@@ -3922,16 +3966,18 @@ def xlstm_continuity_readings(torch, run: dict, prompt: int, steps: int
     the full prefill's inputs (:func:`mixer_continuation` against the
     full prefill's outputs at the decoded positions and its final state).
     Layer by layer also: against the mLSTM's full prefill with its
-    convolution left unrounded (the conv dtype quirk removed); the
-    decode's conv state left unshifted (a fault) and the random kernels
-    (the reversal) in the first mLSTM layer. No limit is held here."""
+    convolution left unrounded (the conv dtype quirk removed); the decode
+    steps' outputs kept to 4 significant bits (the control, each layer);
+    the decode's conv state left unshifted (a fault) and the random
+    kernels (the reversal) in the first mLSTM layer. No limit is held
+    here."""
     from repro_torch.models import transformer as tf
     from repro_torch.nn import recurrent as rec
 
     cfg, model = run["cfg"], run["model"]
     tokens = torch.from_numpy(run["prompts"][:, :prompt + steps]).to(
         model.device)
-    out = {"per_layer": [], "unrounded": []}
+    out = {"per_layer": [], "unrounded": [], "control": []}
     with torch.inference_mode(), palindromic_convs(torch, model):
         logits, cache = tf.prefill(model, cfg, tokens[:, :prompt])
         for t in range(prompt, prompt + steps):
@@ -3946,6 +3992,10 @@ def xlstm_continuity_readings(torch, run: dict, prompt: int, steps: int
             got = mixer_continuation(torch, p, kind, cfg, h, prompt)
             out["per_layer"].append(mixer_errors(torch, got,
                                                  (y[:, prompt:], st)))
+            coarse = round_to_bits(torch, got[0].float().clone(), 4)
+            out["control"].append(mixer_errors(torch, (coarse, got[1]),
+                                               (y[:, prompt:], st)))
+            del coarse
             if kind == "mlstm":
                 with swapped(rec, "causal_conv",
                              conv_unrounded(rec.causal_conv)):
@@ -3970,18 +4020,23 @@ def check_xlstm_continuity(torch, run: dict,
                            prompt: int = XLSTM_CONT_PROMPT,
                            steps: int = XLSTM_GEN) -> dict:
     """:func:`xlstm_continuity_readings`, held: layer by layer the decode
-    steps' outputs within MIXER_RTOL and the final states within
+    steps' outputs within XLSTM_CONT_OUT_RTOL and the final states within
     XLSTM_CONT_RTOL (the conv dtype quirk: the decode's convolution is not
-    rounded to bf16 where the prefill's is), the unshifted conv state over
-    them; the whole model within XLSTM_CONT_WHOLE_RTOL. The random
+    rounded to bf16 where the prefill's is), each layer's 4-bit control and
+    the unshifted conv state over them; the whole model within
+    XLSTM_CONT_WHOLE_RTOL. The random
     kernels' gap (the reference's reversal) and the gap with the quirk
     removed are reported."""
     r = xlstm_continuity_readings(torch, run, prompt, steps)
-    for i, e in enumerate(r["per_layer"]):
-        check(not over_limits(e, XLSTM_CONT_RTOL),
-              f"layer {i} decode vs prefill: {e} (limits {MIXER_RTOL}, "
-              f"states {XLSTM_CONT_RTOL})")
-    check(bool(over_limits(r["conv state unshifted"], XLSTM_CONT_RTOL)),
+    for i, (e, c) in enumerate(zip(r["per_layer"], r["control"])):
+        check(not over_limits(e, XLSTM_CONT_RTOL, XLSTM_CONT_OUT_RTOL),
+              f"layer {i} decode vs prefill: {e} (limits "
+              f"{XLSTM_CONT_OUT_RTOL}, states {XLSTM_CONT_RTOL})")
+        check(c["out"] > XLSTM_CONT_OUT_RTOL,
+              f"layer {i}: the 4-bit control {c['out']} is within the "
+              f"limit {XLSTM_CONT_OUT_RTOL}")
+    check(bool(over_limits(r["conv state unshifted"], XLSTM_CONT_RTOL,
+                           XLSTM_CONT_OUT_RTOL)),
           f"planted fault not caught: {r['conv state unshifted']}")
     whole = worst_of(r["whole"])
     check(XLSTM_CONT_WHOLE_RTOL is None
@@ -3990,6 +4045,7 @@ def check_xlstm_continuity(torch, run: dict,
           f"{XLSTM_CONT_WHOLE_RTOL})")
     return {"whole": whole, "layer_worst": layer_worst(r["per_layer"]),
             "unrounded_worst": layer_worst(r["unrounded"]),
+            "control_least": min(c["out"] for c in r["control"]),
             "conv state unshifted": r["conv state unshifted"],
             "reversed kernels": r["reversed kernels"]}
 
@@ -4241,7 +4297,7 @@ def log_xlstm(x: dict, card: str) -> None:
     log(f"phase 11 continuity, prefill {XLSTM_CONT_PROMPT} + {XLSTM_GEN} "
         f"decode steps vs prefill {XLSTM_CONT_PROMPT + XLSTM_GEN} with "
         f"palindromic kernels: {json.dumps(c)} (limits layer by layer "
-        f"{MIXER_RTOL}, states {XLSTM_CONT_RTOL}; whole "
+        f"{XLSTM_CONT_OUT_RTOL}, states {XLSTM_CONT_RTOL}; whole "
         f"{XLSTM_CONT_WHOLE_RTOL}) [{card}]")
     lg = x["long"]
     log(f"phase 11 chunkwise prefill {lg['batch']} x {lg['seq']} through "
@@ -4266,6 +4322,221 @@ def log_xlstm(x: dict, card: str) -> None:
         + f"; median timed step {tr['step_s']:.3f} s, "
         f"{tr['tokens_per_s']:.1f} tokens/s; peak device memory "
         f"{tr['peak_gib']:.3f} GiB; run {tr['wall_s']:.3f} s [{card}]")
+
+
+# --------------------------------------------------------------- phase 12
+def host_copy(state: dict) -> dict:
+    """A copy on the host of port train ``state``'s tensors (by name),
+    step and count."""
+    def copy(named):
+        return {n: t.detach().to("cpu", copy=True) for n, t in named}
+    return {"params": copy(state["params"].named_parameters()),
+            "m": copy(state["opt"]["m"].items()),
+            "v": copy(state["opt"]["v"].items()),
+            "step": int(state["step"]), "count": int(state["opt"]["count"])}
+
+
+def state_mismatches(torch, state: dict, want: dict) -> list:
+    """The tensors of port train ``state`` (on the host) whose dtype,
+    shape or bits differ from :func:`host_copy` ``want``, and a differing
+    step or count."""
+    got = host_copy(state) if state["params"].lm_head.device.type != "cpu" \
+        else {"params": dict(state["params"].named_parameters()),
+              "m": state["opt"]["m"], "v": state["opt"]["v"],
+              "step": int(state["step"]), "count": int(state["opt"]["count"])}
+    bad = []
+    for part in ("params", "m", "v"):
+        if set(got[part]) != set(want[part]):
+            bad.append(f"{part}: names differ")
+            continue
+        for name, w in want[part].items():
+            g = got[part][name].detach()
+            if g.dtype != w.dtype or g.shape != w.shape \
+                    or not torch.equal(g.contiguous().view(torch.uint8),
+                                       w.contiguous().view(torch.uint8)):
+                bad.append(f"{part}:{name}")
+    bad.extend(f"{k} {got[k]} != {want[k]}" for k in ("step", "count")
+               if got[k] != want[k])
+    return bad
+
+
+def elastic_continuation(torch, cfg=None, device: str = "cuda",
+                         batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+                         steps: int = ELASTIC_STEPS) -> dict:
+    """Phase 12a: ``launch.train.run`` trains ``cfg`` (default
+    ``MODEL_ARCH`` at full width cut to ELASTIC_LAYERS) for ``steps``
+    steps of ``batch`` x ``seq`` with a
+    checkpoint at the last (its save timed), and the state at that step is
+    copied to the host; ``steps`` more steps on the live state are the
+    uninterrupted run. ``train.elastic.elastic_restart`` restores
+    snapshot(steps) onto the CPU, where every tensor must equal the host
+    copy bit for bit, and again onto ``device``, where ``steps`` more steps
+    (``train.elastic.continue_training``) must give the uninterrupted
+    run's losses exactly (the kernels are deterministic), at the same
+    batch indices, and launch what ``launches_per_step`` gives for the
+    config each step, every attention launch forward and backward on
+    ``wgmma``."""
+    import dataclasses
+    import gc
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.versioned import Version
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as psteps
+    from repro_torch.launch import train as ptrain
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train import checkpoint as ckpt_mod
+    from repro_torch.train import elastic
+
+    if cfg is None:
+        cfg = dataclasses.replace(get_config(MODEL_ARCH),
+                                  num_layers=ELASTIC_LAYERS)
+    on_card = device == "cuda"
+    build = pathlib.Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    out = {"layers": cfg.num_layers}
+    real_save = ckpt_mod.CheckpointManager.save
+    saves: list[float] = []
+
+    def timed_save(self, *args, **kw):
+        t = time.perf_counter()
+        v = real_save(self, *args, **kw)
+        saves.append(time.perf_counter() - t)
+        return v
+
+    def launched(n_steps: int) -> dict:
+        counts = ops.launch_counts()
+        routes = ops.route_counts()
+        want = {k: v * n_steps if on_card else 0
+                for k, v in launches_per_step(cfg).items()}
+        for name, n in want.items():
+            check(counts[name] == n, f"elastic: {name} launched "
+                                     f"{counts[name]} times, expected {n}")
+        for name in ("flash_attention", "flash_attention_bwd"):
+            check(routes[name]["wgmma"] == want[name],
+                  f"elastic: {name} routes {routes[name]}")
+        return {k: counts[k] for k in want}
+
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        with swapped(ckpt_mod.CheckpointManager, "save", timed_save):
+            first, state = ptrain.run(cfg, steps=steps, batch=batch,
+                                      seq=seq, ckpt_dir=tmp, ckpt_every=1,
+                                      log_every=100, seed=SEED,
+                                      device=device)
+        check(len(saves) == 1, f"{len(saves)} checkpoints written")
+        files = list(pathlib.Path(tmp).glob("*.npz"))
+        out["ckpt_bytes"] = sum(f.stat().st_size for f in files)
+        out["save_s"] = saves[0]
+        at_ckpt = host_copy(state)
+        ops.reset_launch_counts()
+        straight = elastic.continue_training(cfg, state, steps_n=steps,
+                                             batch=batch, seq=seq, seed=SEED)
+        sync(torch, device)
+        out["launches_uninterrupted"] = launched(steps)
+        del state
+        # the driver's dataflow holds its state box in a reference cycle
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        like = psteps.reference_state_like(cfg)
+        mgr = ckpt_mod.CheckpointManager(tmp)
+        t = time.perf_counter()
+        host = elastic.elastic_restart(cfg, mgr, like, make_local_mesh("cpu"),
+                                       version=Version(0, steps))
+        out["restore_cpu_s"] = time.perf_counter() - t
+        bad = state_mismatches(torch, host, at_ckpt)
+        check(not bad, f"elastic restore onto the CPU differs from the "
+                       f"card's state at step {steps}: {bad[:5]}")
+        del host, at_ckpt
+        t = time.perf_counter()
+        card = elastic.elastic_restart(cfg, mgr, like,
+                                       make_local_mesh(device),
+                                       version=Version(0, steps))
+        sync(torch, device)
+        out["restore_card_s"] = time.perf_counter() - t
+        check(int(card["step"]) == steps, f"restored step {card['step']}")
+        ops.reset_launch_counts()
+        resumed = elastic.continue_training(cfg, card, steps_n=steps,
+                                            batch=batch, seq=seq, seed=SEED)
+        sync(torch, device)
+        out["launches"] = launched(steps)
+        del card
+        gc.collect()
+    check(list(resumed) == list(range(steps, 2 * steps)),
+          f"resumed at batch indices {list(resumed)}")
+    check(resumed == straight, f"losses after the restart {resumed}, "
+                               f"uninterrupted {straight}")
+    out.update(first=[first[i] for i in sorted(first)],
+               uninterrupted=[straight[i] for i in sorted(straight)],
+               resumed=[resumed[i] for i in sorted(resumed)])
+    return out
+
+
+def predict_against_card(torch, measured: dict) -> dict:
+    """Phase 12b: the dry-run's count (``launch.dryrun.count_step`` on meta
+    tensors standing for the card) of phase 5's serving prefill and phase
+    8c's training step, beside what those phases measured: the predicted
+    peak (the step's arguments and the most it holds at once) within
+    PEAK_RTOL of the measured one less what earlier phases left allocated,
+    the predicted flops and bytes, and the roofline row of each with the
+    share of the measured time its dominant term accounts for."""
+    from repro_torch.analysis import roofline
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun
+
+    cfg = get_config(MODEL_ARCH)
+    out = {}
+    for name, kind, batch, seq in (
+            ("prefill", "prefill", MODEL_REQUESTS, MODEL_PROMPT),
+            ("train", "train", TRAIN_BATCH, TRAIN_SEQ)):
+        c = dryrun.count_step(cfg, kind, batch, seq)
+        m = measured[name]
+        pred = c["argument_bytes"] + c["peak_bytes"]
+        seen = m["peak_bytes"] - m["left_bytes"]
+        rel = (pred - seen) / seen
+        row = roofline.cell_roofline(cfg, ShapeCell(name, seq, batch, kind),
+                                     c)
+        out[name] = {
+            "batch": batch, "seq": seq, "count_s": c["count_s"],
+            "predicted_peak_gib": pred / 2**30,
+            "measured_peak_gib": seen / 2**30, "peak_rel_err": rel,
+            "flops": c["flops"], "tensor_core_flops": c["tensor_core_flops"],
+            "hbm_bytes": c["hbm_bytes"], "kernels": c["kernels"],
+            "compute_s": row["compute_s"], "memory_s": row["memory_s"],
+            "dominant": row["dominant"],
+            "roofline_fraction": row["roofline_fraction"],
+            "measured_s": m["s"], "bound_share": row["bound_s"] / m["s"]}
+        check(abs(rel) <= PEAK_RTOL,
+              f"dry-run {name}: predicted peak {pred / 2**30:.3f} GiB, "
+              f"measured {seen / 2**30:.3f} GiB ({rel:+.3%}, limit "
+              f"{PEAK_RTOL})")
+    return out
+
+
+def log_phase12(el: dict, pred: dict, card: str) -> None:
+    log(f"phase 12a elastic restart, {MODEL_ARCH} at full width cut to "
+        f"{el['layers']} layers, {ELASTIC_STEPS} + {ELASTIC_STEPS} steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}: checkpoint {el['ckpt_bytes']} bytes, "
+        f"save {el['save_s']:.3f} s "
+        f"({el['ckpt_bytes'] / el['save_s'] / 1e9:.3f} GB/s), restore onto "
+        f"the CPU {el['restore_cpu_s']:.3f} s (bit-equal to the card's "
+        f"state), onto the card {el['restore_card_s']:.3f} s; losses "
+        f"{el['first']} then uninterrupted {el['uninterrupted']}, after the "
+        f"restart {el['resumed']} (equal); launches over the "
+        f"{ELASTIC_STEPS} resumed steps {el['launches']} [{card}]")
+    for name, r in pred.items():
+        log(f"phase 12b dry-run vs card, {name} {r['batch']} x {r['seq']}: "
+            f"peak predicted {r['predicted_peak_gib']:.3f} GiB, measured "
+            f"{r['measured_peak_gib']:.3f} GiB ({r['peak_rel_err']:+.3%}, "
+            f"limit {PEAK_RTOL}); flops {r['flops']:.4e} (tensor cores "
+            f"{r['tensor_core_flops']:.4e}), HBM bytes {r['hbm_bytes']:.4e}"
+            f", kernels {r['kernels']}; roofline compute {r['compute_s']:.4f}"
+            f" s, memory {r['memory_s']:.4f} s, {r['dominant']}-bound, "
+            f"roofline fraction {r['roofline_fraction']:.3f}; measured "
+            f"{r['measured_s']:.4f} s, the bound {r['bound_share']:.3f} of "
+            f"it; counted in {r['count_s']:.2f} s [{card}]")
 
 
 def main() -> int:
@@ -4373,6 +4644,11 @@ def main() -> int:
     log("phase 5 per-layer mixer max rel err: " + " ".join(
         "/".join(f"{v:.2e}" for v in e.values()) for e in layers["per_layer"]))
     agree = check_model_against_plain(torch, model_run)
+    # phase 12 holds the dry-run's prediction against these
+    measured = {"prefill": {
+        "peak_bytes": model_run["peak_gib"] * 2**30,
+        "left_bytes": model_run["base_bytes"] - model_run["weight_bytes"],
+        "s": tm["prefill_s"]}}
     del model_run
     torch.cuda.empty_cache()
     lru_ms = next(r["ms"] for r in rows if r["name"] == "lru_scan")
@@ -4476,6 +4752,9 @@ def main() -> int:
         f"flash_attention routes {train_run['routes']}, "
         f"flash_attention_bwd routes {train_run['bwd_routes']}; run "
         f"{train_run['wall_s']:.3f} s")
+    measured["train"] = {"peak_bytes": train_run["peak_gib"] * 2**30,
+                         "left_bytes": train_run["base_bytes"],
+                         "s": train_run["step_s"]}
     split = train_time_split(torch, train_run)
     log(f"phase 8c time split of one more step: {json.dumps(split)}")
     del train_run
@@ -4508,6 +4787,12 @@ def main() -> int:
     t = time.perf_counter()
     log_xlstm(serve_xlstm_family(torch), card)
     log(f"phase 11 the xLSTM family: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    elastic = elastic_continuation(torch)
+    torch.cuda.empty_cache()
+    log_phase12(elastic, predict_against_card(torch, measured), card)
+    log(f"phase 12 elastic restart and the dry-run against the card: "
+        f"{time.perf_counter() - t:.3f} s")
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"
                     or m.startswith("repro."))

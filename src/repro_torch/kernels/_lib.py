@@ -196,6 +196,19 @@ def require(t: torch.Tensor, name: str, dtypes, ndim: int) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def require_or_meta(t: torch.Tensor, name: str, dtypes, ndim: int) -> None:
+    """:func:`require`, except that a meta tensor of an accepted dtype,
+    rank and layout passes too: for a wrapper whose meta branch counts its
+    kernel's work for the dry-run and hands no pointer on."""
+    if isinstance(t, torch.Tensor) and t.is_meta:
+        if t.dtype not in dtypes or t.dim() != ndim or not t.is_contiguous():
+            raise ValueError(f"{name}: meta tensor {t.dtype} "
+                             f"{tuple(t.shape)} is not a contiguous "
+                             f"{ndim}-d tensor of {tuple(dtypes)}")
+        return
+    require(t, name, dtypes, ndim)
+
+
 def refuse_grad(kernel: str, *tensors) -> None:
     """Raise if a raw launcher would drop a gradient: its output has no
     autograd history, so with grad mode on no input may require grad (the

@@ -16,6 +16,9 @@ anything is launched, each with a forward and a backward kernel:
   per 64-row q tile), the backward ``csrc/flash_attention_bwd.cu``.
 
 The backward of either route is fed the forward's per-row log-sum-exp.
+On ``meta`` tensors (the dry-run, ``analysis/hlo.py``) both launchers
+allocate the outputs their kernels write and report the kernels' work
+(:func:`work`) to the op counter; they launch nothing.
 Each file's header says what bounds it on an H100. The plain versions are
 in :mod:`repro_torch.kernels.ref`.
 
@@ -55,9 +58,42 @@ def route(dtype: torch.dtype, hd: int) -> str:
     return "simt"
 
 
+def causal_pairs(S: int, window) -> int:
+    """(q, k) pairs with 0 <= q - k < window (window None: q - k >= 0)."""
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def work(B: int, Hq: int, Hkv: int, S: int, hd: int, esize: int, window,
+         *, causal: bool = True, backward: bool = False,
+         lse: bool = False) -> dict:
+    """The least work of one call, as ``chip_smoke.py``'s bound counts
+    it: operations 4 hd per unmasked (q, k) pair forward (two products),
+    10 hd backward (five); an exponential per pair; bytes q, k, v read and
+    the output written once (backward: q, k, v, out, dout read, dq, dk,
+    dv written, and the LSE read), plus the LSE written when asked."""
+    pairs = B * Hq * (causal_pairs(S, window) if causal else S * S)
+    q_elems, kv_elems = B * Hq * S * hd, B * Hkv * S * hd
+    if backward:
+        return {"flops": 10.0 * hd * pairs, "transcendentals": float(pairs),
+                "hbm_bytes": float(esize * (4 * q_elems + 4 * kv_elems)
+                                   + 4 * B * Hq * S)}
+    return {"flops": 4.0 * hd * pairs, "transcendentals": float(pairs),
+            "hbm_bytes": float(esize * (2 * q_elems + 2 * kv_elems)
+                               + (4 * B * Hq * S if lse else 0))}
+
+
+def _record(name: str, which: str, dims, q, window, **kw) -> None:
+    from repro_torch.analysis import hlo
+    hlo.record_kernel(name, tensor_core=which == "wgmma",
+                      **work(*dims, q.element_size(), window, **kw))
+
+
 def _check_qkv(q, k, v, extra=()) -> tuple[int, int, int, int, int]:
     """Shapes (B, Hq, Hkv, S, hd) of q, k, v (and of the (B, Hq, S, hd)
-    tensors in ``extra``), after the checks every launcher makes."""
+    tensors in ``extra``), after the checks every launcher makes (meta
+    tensors pass: the launchers count them, see the module docstring)."""
     for name, t in (("q", q), ("k", k), ("v", v), *extra):
         if not isinstance(t, torch.Tensor) or t.dim() != 4:
             raise ValueError(f"{name}: expected a 4-d torch.Tensor")
@@ -69,7 +105,7 @@ def _check_qkv(q, k, v, extra=()) -> tuple[int, int, int, int, int]:
                             "all must share one")
     route(q.dtype, hd)
     for name, t in (("q", q), ("k", k), ("v", v), *extra):
-        _lib.require(t, name, tuple(_DTYPES), 4)
+        _lib.require_or_meta(t, name, tuple(_DTYPES), 4)
     if tuple(k.shape) != (B, Hkv, S, hd) or v.shape != k.shape \
             or k.device != q.device or v.device != q.device:
         raise ValueError(f"k and v must be ({B}, Hkv, {S}, {hd}) on q's "
@@ -83,9 +119,13 @@ def _check_qkv(q, k, v, extra=()) -> tuple[int, int, int, int, int]:
     return B, Hq, Hkv, S, hd
 
 
-def _mask_args(S: int, hd: int, causal: bool, window, q) -> tuple:
+def _check_window(window) -> None:
     if window is not None and int(window) < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
+
+
+def _mask_args(S: int, hd: int, causal: bool, window, q) -> tuple:
+    _check_window(window)
     return (_lib.int32_scalar(S, "S"), hd, int(bool(causal)),
             0 if window is None else _lib.int32_scalar(window, "window"),
             hd ** -0.5, _lib.stream_of(q))
@@ -102,12 +142,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     before the query are masked (None: no window). Any S."""
     B, Hq, Hkv, S, hd = _check_qkv(q, k, v)
     which = route(q.dtype, hd)
-    args = _mask_args(S, hd, causal, window, q)
+    if q.is_meta:
+        _check_window(window)
+    else:
+        args = _mask_args(S, hd, causal, window, q)
     _lib.refuse_grad("flash_attention", q, k, v)
     out = torch.empty_like(q)
     lse = (torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    if q.numel():
+    if q.is_meta:
+        _record("flash_attention", which, (B, Hq, Hkv, S, hd), q, window,
+                causal=causal, lse=return_lse)
+    elif q.numel():
         lse_ptr = None if lse is None else lse.data_ptr()
         lib = _lib.load()
         if which == "wgmma":
@@ -141,13 +187,22 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     shape of its input; dk and dv sum over the query heads of each kv
     head's group."""
     B, Hq, Hkv, S, hd = _check_qkv(q, k, v, (("out", out), ("dout", dout)))
-    _lib.require(lse, "lse", (torch.float32,), 3)
+    _lib.require_or_meta(lse, "lse", (torch.float32,), 3)
     if tuple(lse.shape) != (B, Hq, S) or lse.device != q.device:
         raise ValueError(f"lse must be ({B}, {Hq}, {S}) on q's device, got "
                          f"{tuple(lse.shape)}")
     which = route(q.dtype, hd)
-    args = _mask_args(S, hd, causal, window, q)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.is_meta:
+        _check_window(window)
+        # the delta scratch the kernels share, held for the call
+        delta = torch.empty((B, Hq, S), dtype=torch.float32,
+                            device=q.device)
+        _record("flash_attention_bwd", which, (B, Hq, Hkv, S, hd), q,
+                window, causal=causal, backward=True)
+        del delta
+        return dq, dk, dv
+    args = _mask_args(S, hd, causal, window, q)
     if q.numel():
         delta = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
         bf16 = (q, k, v, out, dout, dq, dk, dv)

@@ -12,7 +12,10 @@ carry. Nothing crosses between blocks: no scratch, no second pass. The
 gradient is a chunked scan over time in two launches, one thread per
 (batch, chunk of ``BWD_CHUNK`` steps, channel), with a (2, B, n_chunks, C)
 float32 scratch of per-chunk carries that :func:`lru_scan_bwd` allocates.
-The plain versions are in :mod:`repro_torch.kernels.ref`.
+The plain versions are in :mod:`repro_torch.kernels.ref`. On ``meta``
+tensors (the dry-run, ``analysis/hlo.py``) both launchers allocate the
+outputs and scratch their kernels write and report the kernels' work
+(:func:`work`) to the op counter; they launch nothing.
 
 :func:`lru_scan` and :func:`lru_scan_bwd` are the raw launchers. Each takes
 CUDA tensors only, checks device, dtype, shape and contiguity, allocates
@@ -37,8 +40,24 @@ SCAN_WARPS, SCAN_STEPS = 8, 16
 BWD_CHUNK = 64
 
 
+def work(B: int, S: int, C: int, *, backward: bool = False) -> dict:
+    """The least work of one call, as ``chip_smoke.py``'s bound counts it
+    (n = B S C float32 elements): forward a, b read and h written (12 n
+    bytes), a multiply and an add a step (2 n); backward a, h, dh read
+    and da, db written (20 n bytes), 3 n operations."""
+    n = B * S * C
+    if backward:
+        return {"flops": 3.0 * n, "hbm_bytes": 20.0 * n}
+    return {"flops": 2.0 * n, "hbm_bytes": 12.0 * n}
+
+
+def _record(name: str, B: int, S: int, C: int, **kw) -> None:
+    from repro_torch.analysis import hlo
+    hlo.record_kernel(name, tensor_core=False, **work(B, S, C, **kw))
+
+
 def _check_h0(h0, B: int, C: int, like: torch.Tensor, name: str) -> None:
-    _lib.require(h0, name, (torch.float32,), 2)
+    _lib.require_or_meta(h0, name, (torch.float32,), 2)
     if tuple(h0.shape) != (B, C) or h0.device != like.device:
         raise ValueError(f"{name} must be ({B}, {C}) on a's device, got "
                          f"{tuple(h0.shape)} on {h0.device}")
@@ -48,8 +67,8 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor,
              h0: torch.Tensor | None = None) -> torch.Tensor:
     """a, b: (B, S, C) float32 -> h: (B, S, C) float32, with
     h_0 = a_0 * h0 + b_0 (h0: (B, C) float32, zeros when None). Any S."""
-    _lib.require(a, "a", (torch.float32,), 3)
-    _lib.require(b, "b", (torch.float32,), 3)
+    _lib.require_or_meta(a, "a", (torch.float32,), 3)
+    _lib.require_or_meta(b, "b", (torch.float32,), 3)
     if b.shape != a.shape or b.device != a.device:
         raise ValueError(f"b {tuple(b.shape)} must match a {tuple(a.shape)} "
                          "on a's device")
@@ -58,7 +77,9 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor,
         _check_h0(h0, B, C, a, "h0")
     _lib.refuse_grad("lru_scan", a, b, h0)
     out = torch.empty_like(a)
-    if a.numel():
+    if a.is_meta:
+        _record("lru_scan", B, S, C)
+    elif a.numel():
         lib = _lib.load()
         with _lib.on_device(a):
             code = lib.rt_lru_scan(
@@ -80,7 +101,7 @@ def lru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
     float32; h0 as given to the scan. Returns (da, db, dh0), dh0 (B, C)
     when ``want_dh0`` (and h0 is given), else None."""
     for name, t in (("a", a), ("h", h), ("dh", dh)):
-        _lib.require(t, name, (torch.float32,), 3)
+        _lib.require_or_meta(t, name, (torch.float32,), 3)
         if t.shape != a.shape or t.device != a.device:
             raise ValueError(f"{name} {tuple(t.shape)} must match a "
                              f"{tuple(a.shape)} on a's device")
@@ -94,6 +115,9 @@ def lru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
         n_chunks = -(-S // BWD_CHUNK)
         carry = torch.empty((2, B, n_chunks, C), dtype=torch.float32,
                             device=a.device)
+        if a.is_meta:
+            _record("lru_scan_bwd", B, S, C, backward=True)
+            return da, db, dh0
         lib = _lib.load()
         stream = _lib.stream_of(a)
         with _lib.on_device(a):

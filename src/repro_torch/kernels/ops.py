@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import stands_for
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import lru_scan as _lru
 from repro_torch.kernels import ref
@@ -37,10 +38,14 @@ _WRAPPERS = {"liveness_mask": _sr.liveness_mask,
 
 def wants_kernel(t: torch.Tensor, use_kernel) -> bool:
     """Resolve ``use_kernel`` against the tensor that would feed the
-    kernel (see the module docstring)."""
+    kernel (see the module docstring). A meta tensor that stands for a
+    CUDA one (``device.meta_as``) resolves as a CUDA tensor: the
+    wrapper then counts the kernel's work for the dry-run and launches
+    nothing."""
+    on_card = stands_for(t.device).type == "cuda"
     if use_kernel is None:
-        return t.is_cuda
-    if use_kernel and not t.is_cuda:
+        return on_card
+    if use_kernel and not on_card:
         raise ValueError("use_kernel=True needs a CUDA tensor; this one is "
                          f"on {t.device}")
     return bool(use_kernel)

@@ -47,12 +47,15 @@ def unflatten_tree(flat: dict) -> dict:
     return tree
 
 
-def _reference_path(name: str) -> tuple[str, int | None]:
+def reference_path(name: str) -> tuple[str, int | None]:
     """Port parameter name -> (reference path, unit row or None)."""
     parts = name.split(".")
     if parts[0] == "units":
         return "/".join(["units"] + parts[2:]), int(parts[1])
     return "/".join(parts), None
+
+
+_reference_path = reference_path
 
 
 def load_named(named: dict, tree: dict) -> None:
@@ -63,7 +66,7 @@ def load_named(named: dict, tree: dict) -> None:
     flat = flatten_tree(tree)
     seen = set()
     for name, t in named.items():
-        path, row = _reference_path(name)
+        path, row = reference_path(name)
         if path not in flat:
             raise KeyError(f"reference tree lacks {path!r}")
         arr = np.asarray(flat[path])
@@ -102,7 +105,7 @@ def named_to_reference(named: dict, dtype=np.float32) -> dict:
     flat: dict = {}
     rows: dict = {}
     for name, t in named.items():
-        path, row = _reference_path(name)
+        path, row = reference_path(name)
         arr = to_host(t.float() if t.dtype == torch.bfloat16 else t) \
             .astype(dtype, copy=False)
         if row is None:
@@ -128,7 +131,7 @@ def reference_shapes(cfg: ModelConfig) -> dict:
     model = Transformer(cfg, "meta")
     flat = {}
     for name, t in model.named_parameters():
-        path, row = _reference_path(name)
+        path, row = reference_path(name)
         shape = tuple(t.shape) if row is None else (cfg.num_units,
                                                      *t.shape)
         flat[path] = np.zeros(shape, np.float32)

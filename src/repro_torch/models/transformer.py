@@ -30,8 +30,8 @@ card, the plain versions on the CPU):
   * ``decode_step``   — one token (or frame) with per-layer caches (KV /
                         recurrent).
 
-The reference's ``launch/sharding.constrain`` mesh hints have no
-counterpart on one device and are dropped.
+The reference's ``launch/sharding.constrain`` mesh hints are left out:
+on one card the port's ``launch.sharding.constrain`` returns its input.
 """
 from __future__ import annotations
 

@@ -33,11 +33,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.device import stands_for
+
 
 def compute_dtype(device) -> torch.dtype:
     """bfloat16 on a CUDA device, float32 elsewhere: the reference's rule of
-    bf16 on the accelerator and f32 when executing on the CPU backend."""
-    return torch.bfloat16 if torch.device(device).type == "cuda" \
+    bf16 on the accelerator and f32 when executing on the CPU backend (a
+    meta device follows the device it stands for, ``device.meta_as``)."""
+    return torch.bfloat16 if stands_for(device).type == "cuda" \
         else torch.float32
 
 
@@ -45,7 +48,7 @@ def weight_dtype(cfg, device, trainable: bool = False) -> torch.dtype:
     """Dtype of the weights that only :func:`dense` or the embedding gather
     read: for serving the compute dtype on a CUDA device; else (the CPU,
     where both are float32, or a trainable model) ``cfg.param_dtype``."""
-    if torch.device(device).type == "cuda" and not trainable:
+    if stands_for(device).type == "cuda" and not trainable:
         return compute_dtype(device)
     return getattr(torch, cfg.param_dtype)
 

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.analysis import hlo
 from repro_torch.kernels import ops
 from repro_torch.nn.layers import dense, gelu, normal_, param, weight_dtype
 
@@ -173,11 +174,11 @@ def _scan(step, carry: tuple, xs: tuple, tc: int = 0):
 
     def chunk(*args):
         c, xc = tuple(args[:n]), args[n:]
-        ys = []
-        for t in range(xc[0].shape[0]):
-            c, y = step(c, tuple(x[t] for x in xc))
-            ys.append(y)
-        return (*c, torch.stack(ys))
+        # a plain loop over time; the dry-run's counter runs two steps and
+        # counts the second for the rest (analysis/hlo.py)
+        c, ys = hlo.unrolled(xc[0].shape[0], lambda t, c: step(
+            c, tuple(x[t] for x in xc)), c, stack=True)
+        return (*c, ys)
 
     S = xs[0].shape[0]
     if tc and S % tc == 0 and S > tc and torch.is_grad_enabled():

@@ -18,6 +18,7 @@ from __future__ import annotations
 import json
 import os
 import pathlib
+from concurrent.futures import ThreadPoolExecutor
 
 from typing import Any, Callable
 
@@ -26,6 +27,10 @@ import torch
 
 from repro_torch.core.versioned import Version, VersionedStore
 from repro_torch.device import to_host
+
+
+# threads reading a checkpoint's leaves
+_READERS = min(8, os.cpu_count() or 1)
 
 
 class CheckpointStructureError(ValueError):
@@ -131,20 +136,32 @@ class CheckpointManager:
         """Restore into the structure of ``like`` (a state pytree or its
         eval_shape). ``version=None`` -> latest; otherwise the paper's
         snapshot rule picks max{v' <= version}."""
-        fname = self.index.get("ckpt", version)
-        data = np.load(self.dir / fname)
+        path = self.dir / self.index.get("ckpt", version)
+        with np.load(path) as data:
+            files = set(data.files)
         flat_like = _flatten(like)
-        missing = set(flat_like) - set(data.files)
+        missing = set(flat_like) - files
         if missing:
             raise CheckpointStructureError(
                 f"checkpoint missing leaves: {sorted(missing)[:4]}")
 
+        def read(key):
+            # a handle per read: the zip's CRC check and the copy out of
+            # the file release the GIL, so the leaves are read in parallel
+            with np.load(path) as data:
+                return data[key]
+        with ThreadPoolExecutor(max_workers=_READERS) as pool:
+            arrays = dict(zip(flat_like, pool.map(read, flat_like)))
+
         def leaf_of(key, leaf):
-            arr = data[key]
+            arr = arrays.pop(key)
             if isinstance(leaf, torch.Tensor):
                 return torch.from_numpy(np.array(arr)).to(
                     dtype=leaf.dtype, device=leaf.device)
-            return arr.astype(leaf.dtype) if hasattr(leaf, "dtype") else arr
+            # the array is the file's own, fresh: no second copy when
+            # its dtype is already the one asked for
+            return arr.astype(leaf.dtype, copy=False) \
+                if hasattr(leaf, "dtype") else arr
 
         return _unflatten(like, leaf_of)
 

@@ -4,7 +4,8 @@ Never materializes the full (B·S, V) logits: tokens are processed in chunks
 and each chunk runs under ``torch.utils.checkpoint`` (the reference's
 ``jax.checkpoint``), so its logits are recomputed in the backward pass and
 peak memory stays at one (chunk, V) block. The reference's ``constrain``
-mesh hint has no counterpart on one device and is dropped.
+mesh hint is left out: on one card ``launch.sharding.constrain`` returns
+its input.
 """
 from __future__ import annotations
 

@@ -42,7 +42,10 @@ def test_port_has_the_slice_modules():
               "launch.train", "configs.qwen1_5_110b",
               "configs.starcoder2_7b", "configs.gemma3_27b",
               "configs.internvl2_76b", "configs.musicgen_medium",
-              "nn.moe", "configs.mixtral_8x22b", "configs.phi3_5_moe"):
+              "nn.moe", "configs.mixtral_8x22b", "configs.phi3_5_moe",
+              "launch.mesh", "launch.sharding", "launch.specs",
+              "launch.dryrun", "analysis.hlo", "analysis.roofline",
+              "analysis.report", "train.elastic"):
         assert f"repro_torch.{m}" in mods, m
     for src in ("snapshot_resolve.cu", "segment_sum.cu", "lru_scan.cu",
                 "flash_attention.cu", "flash_attention_bwd.cu"):
@@ -79,3 +82,15 @@ def test_chip_smoke_imports_no_jax_and_no_repro():
     roots = {n.split(".")[0] for n in names}
     assert "repro_torch" in roots and "torch" in roots
     assert not roots & {"jax", "jaxlib", "repro"}, sorted(names)
+
+
+def test_every_reference_module_has_a_counterpart():
+    """Every module of ``src/repro/`` has a port at the same path under
+    ``src/repro_torch/`` but the source linter ``analysis/staticcheck``,
+    a repository tool that imports no JAX and runs over either package."""
+    def modules(pkg):
+        root = SRC / pkg
+        return {str(p.relative_to(root)) for p in root.rglob("*.py")}
+    missing = sorted(modules("repro") - modules("repro_torch"))
+    assert missing and all(m.startswith("analysis/staticcheck/")
+                           for m in missing), missing

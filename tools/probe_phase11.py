@@ -17,9 +17,13 @@ line to ``FILE``:
 2. layer by layer, each mixer fed the scan route's input: the chunkwise
    routes and the float64 arithmetic against the scan route;
 3. continuity (``chip_smoke.xlstm_continuity_readings``) at prompts of
-   128 and 256 and 32 decode steps: the whole model and layer by layer,
-   with palindromic kernels, with the conv rounding removed, the
-   unshifted conv state and the random kernels.
+   128, 256 and 512 and 32 decode steps: the whole model and layer by
+   layer, with palindromic kernels, with the conv rounding removed, the
+   decode's outputs kept to 4 bits (the control), the unshifted conv
+   state and the random kernels.
+
+``--only continuity`` takes part 3 alone (about a minute after the
+serving run).
 
 It builds no kernel (the family has none) and prints no ``ok`` line: it
 is not a smoke run.
@@ -41,7 +45,7 @@ cs = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(cs)
 OUT = ROOT / "build" / "probe_phase11.jsonl"
 BITS = (6, 5, 4)
-CONT_PROMPTS = (128, 256)
+CONT_PROMPTS = (128, 256, 512)
 
 
 def emit(rec):
@@ -84,7 +88,7 @@ def per_layer_worst(cfg, errs: dict) -> dict:
                            if k.startswith(f"layer{i}.")) for i in range(n)]}
 
 
-def readings(torch):
+def readings(torch, only=None):
     from repro_torch.models import transformer as tf
 
     cfg = cs.xlstm_config()
@@ -92,6 +96,16 @@ def readings(torch):
     run = cs.serve_model(torch, cfg, requests=cs.XLSTM_REQUESTS,
                          prompt=cs.XLSTM_PROMPT, gen=cs.XLSTM_GEN)
     emit({"serve_s": time.perf_counter() - t, "timings": run["timings"]})
+    if only != "continuity":
+        route_readings(torch, tf, cfg, run)
+    for prompt in CONT_PROMPTS:
+        t = time.perf_counter()
+        r = cs.xlstm_continuity_readings(torch, run, prompt, cs.XLSTM_GEN)
+        r["whole"] = per_layer_worst(cfg, r["whole"])
+        emit({"continuity": prompt, "s": time.perf_counter() - t, **r})
+
+
+def route_readings(torch, tf, cfg, run):
     model = run["model"]
     prompts = torch.from_numpy(run["prompts"]).to(model.device)
     routes = {f"chunkwise {c}": dataclasses.replace(
@@ -121,17 +135,15 @@ def readings(torch):
         del model64
         torch.cuda.empty_cache()
         emit({"whole": whole})
-    for prompt in CONT_PROMPTS:
-        r = cs.xlstm_continuity_readings(torch, run, prompt, cs.XLSTM_GEN)
-        r["whole"] = per_layer_worst(cfg, r["whole"])
-        emit({"continuity": prompt, **r})
 
 
 def main() -> int:
     global OUT
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=str(OUT))
-    OUT = pathlib.Path(ap.parse_args().out)
+    ap.add_argument("--only", choices=["continuity"], default=None)
+    args = ap.parse_args()
+    OUT = pathlib.Path(args.out)
     OUT.parent.mkdir(parents=True, exist_ok=True)
     import torch
     if not torch.cuda.is_available():
@@ -141,7 +153,7 @@ def main() -> int:
     strict_matmul()
     emit({"device": cs.device_line()})
     t = time.perf_counter()
-    readings(torch)
+    readings(torch, args.only)
     emit({"probe_s": time.perf_counter() - t})
     return 0
 
