@@ -23,7 +23,7 @@ before the result lines:
    the kernel's own time from ``torch.profiler``, ``host_ms`` the
    wrapper's host time per call.
 3. The serving slice, driven as ``python -m repro_torch.launch.serve_graph``
-   drives it: 1,048,576 vertices in 4 shards on the card, a 16-epoch churn
+   drives it: 1,048,576 vertices in 4 shards on the card, an 8-epoch churn
    stream of 1,000,000 adds per epoch with ``delete_frac=0.2`` (seed 0), 16
    demo queries per epoch through ``GraphQueryServer``, PageRank prewarmed
    every epoch (tol 1e-6, max_iter 200). Launch counts are reset just
@@ -57,9 +57,9 @@ before the result lines:
 6. The offline graph plane, the JAX package's end-to-end example
    (``examples/dynamic_graph_end_to_end.py``) at full size on the card: a
    preferential-attachment stream (``synthesize_stream``: 1,048,576
-   vertices, 8 epochs of 1,000,000 adds, seed 0), whose in-degrees follow
+   vertices, 4 epochs of 1,000,000 adds, seed 0), whose in-degrees follow
    a power law. Launch counts are reset just before ``pagerank_timeline``
-   runs over all 8 versions (incremental, tol 1e-6, max_iter 200) and read
+   runs over all 4 versions (incremental, tol 1e-6, max_iter 200) and read
    just after: ``segment_sum`` once per PageRank iteration,
    ``liveness_mask`` once per view rebuilt from the stamps. The last
    ranks against the plain route within atol 1e-6; WCC and the emerging
@@ -198,7 +198,7 @@ before the result lines:
    the prefill's conv output unrounded, the chunkwise carry without
    decay_in, the i and f gates swapped, the exact ``F.gelu``) each over
    a limit. Then training: ``check_fits`` passes the full model (32.3 GB
-   of float32 state), and ``launch.train.run`` trains it cut to 4 layers
+   of float32 state), and ``launch.train.run`` trains it cut to 2 layers
    on the chunkwise route, 1 + 2 steps of 2 x 2048 tokens, the first loss
    within 1 of ln(50304). Every line carries the card's name and power
    limit; the kernels line is unchanged.
@@ -218,6 +218,35 @@ before the result lines:
    within ``PEAK_RTOL`` of the measured one (less what earlier phases left
    allocated), the predicted flops and bytes and the roofline row beside
    the measured time. Nothing of phases 5 and 8c is run again.
+13. The elastic and durable graph plane (``elastic_plane``). (a) A
+   ``GraphQueryServer`` (auto-reshard, mirrors of the 64 hottest
+   vertices) over a 2-shard store on the card with a ``ShardPlanner``, a
+   write-ahead log (checkpoint every 4 epochs) and a ``FaultInjector``
+   takes the zipf-skewed stream (1,048,576 vertices, 1,000,000 adds an
+   epoch, ``delete_frac=0.2``, seed 0) for 6 epochs, 16 queries an epoch
+   on the hottest vertices; a seal fault at epoch 3 degrades it and the
+   heal catches it up; after the stream the newest split pair is merged
+   and 2 more epochs follow. Launch counts are reset just before and read
+   just after (``liveness_mask`` must run, ``segment_sum`` once per
+   PageRank iteration). Every sealed version equals two CPU oracles (a
+   store with the same cutovers forced, under a server without mirrors,
+   and a single store), again when rebuilt from the device stamps; every
+   answer equals the no-mirror server's on the CPU oracle (at the degraded
+   window, its recomputation on the single store); each PageRank run is,
+   vertex by vertex, within ``PLANE_PAGERANK_RTOL`` of a float64 rerun
+   from its start, and the same run with its contributions kept to bf16
+   is not. (b) The log recovered onto the card
+   and onto the CPU (plan history, shards, stamp mirrors, every view),
+   a crash point past the merge's cutover recovered on the card, then 2
+   more epochs into the recovered store. (c) The port's crash-recovery
+   demo: ``serve_graph --device cuda`` killed with SIGKILL at epoch 5,
+   recovered on the card and audited against a replay on the CPU,
+   relaunched with ``--recover``, its final answers over RPC against the
+   oracle's. Three faults are planted at 8,192 vertices (split deletes
+   kept out of the device stamp mirror, mirrors published one version
+   stale, a recovery that skips the plan events); each must fail its
+   check. ``python3 tools/probe_phase13.py`` builds the kernels and runs
+   this phase alone (no result lines).
 
 Phase 2 also holds the model kernels against their plain versions at the
 slice's shapes: ``lru_scan`` at (8, 4096, 2560) with and without ``h0``,
@@ -247,6 +276,7 @@ is in the checks line, with phase 8c's launches); the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import statistics
@@ -259,7 +289,9 @@ FP32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 BF16_TC_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 
 N_VERTICES = 1 << 20
-EPOCHS = 16
+# phase 3's stream: 8 epochs (16 until phase 13 joined the run, cut to
+# keep the whole run near its time budget)
+EPOCHS = 8
 ADDS_PER_EPOCH = 1_000_000
 SHARDS = 4
 QUERIES_PER_EPOCH = 16
@@ -283,7 +315,9 @@ STATE_RTOL = 1e-5
 MODEL_RTOL = 5e-2
 
 # phase 6: the offline plane on a preferential-attachment stream
-OFFLINE_N, OFFLINE_EPOCHS, OFFLINE_ADDS = 1 << 20, 8, 1_000_000
+# 4 epochs (8 until phase 13 joined the run, cut to keep the whole run
+# under its time budget)
+OFFLINE_N, OFFLINE_EPOCHS, OFFLINE_ADDS = 1 << 20, 4, 1_000_000
 PARTS, HUB_K = 16, 64                  # benchmarks/run.py's replica axis
 PREGEL_STREAM = (8192, 4, 8192)        # vertices, epochs, adds per epoch
 EDGE_CENTRIC_ITERS = 40
@@ -420,8 +454,9 @@ XLSTM_CONT_OUT_RTOL = 1.88e-2
 # mixer's output kept to 4 significant bits (1.511), to 3 figures
 XLSTM_ROUTE_RTOL = 7.89e-1
 XLSTM_CONT_WHOLE_RTOL = 9.53e-1
-# training: full width, cut to 4 layers (2 mLSTM, 2 sLSTM), chunkwise
-XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_SEQ = 4, 2048
+# training: full width, cut to 2 layers (an mLSTM and an sLSTM; 4 until
+# phase 13 joined the run, cut to pay for its time), chunkwise
+XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_SEQ = 2, 2048
 XLSTM_TRAIN_WARMUP, XLSTM_TRAIN_STEPS = 1, 2
 # phase 12: the elastic restart at full width, recurrentgemma-2b cut to one
 # pattern unit (3 layers: 2 RG-LRU, 1 local attention): 26 layers' float32
@@ -432,6 +467,35 @@ ELASTIC_LAYERS, ELASTIC_STEPS = 3, 2
 # the dry-run's predicted peak against the peak measured on the card
 # (phase 5's serving run, phase 8c's training run), relative
 PEAK_RTOL = 5e-2
+
+# phase 13: the elastic and durable graph plane. 13a: the skewed stream
+# (zipf 1.2, delete_frac 0.2, seed 0) of `stream` epochs through a
+# planner-carrying store of PLANE_SHARDS shards (the planner settings of
+# tests/test_resharding.py's skewed-stream case), a seal fault at
+# `fault_epoch`, then the newest split pair merged and PLANE_AFTER_MERGE
+# more epochs; 13b: PLANE_AFTER_RECOVERY more epochs into the recovered
+# store; 13c: examples/torch_crash_recovery_demo.py at PLANE_CRASH
+PLANE_FULL = {"n": 1 << 20, "stream": 6, "adds": 1_000_000, "fault_epoch": 3}
+PLANE_SMALL = {"n": 8192, "stream": 4, "adds": 4000, "fault_epoch": 2}
+PLANE_AFTER_MERGE, PLANE_AFTER_RECOVERY = 2, 2
+PLANE_SHARDS, PLANE_MIRROR_K, PLANE_CKPT_EVERY, PLANE_HOT = 2, 64, 4, 16
+PLANE_PLANNER = {"imbalance_threshold": 1.2, "min_load": 100.0,
+                 "min_epochs": 2, "max_shards": 8}
+PLANE_CRASH = {"vertices": 262_144, "epochs": 10, "adds": 250_000,
+               "shards": 4, "seed": 0}
+PLANE_CRASH_SMALL = {"vertices": 4096, "epochs": 8, "adds": 4000,
+                     "shards": 4, "seed": 0}
+# 13a's PageRank: each kernel run against a float64 rerun from the same
+# start for the same iterations, vertex by vertex, relative to the float64
+# rank (every rank is at least (1 - damping) / n, so no absolute floor is
+# needed); the same run with its contributions kept to bf16 (the control)
+# must exceed the limit. The limit is the geometric mean, to 3 figures, of
+# the sound reading (7.24e-6) and the control's (8.73e-3), read with
+# tools/probe_phase13.py on an H100 (see PERF.md)
+PLANE_PAGERANK_RTOL = 2.51e-4
+PLANE_FAULTS = ("split deletes left out of the stamp mirror",
+                "mirrors published one version stale",
+                "recovery without the plan events")
 
 
 # one-element int16 fills that open each profiler window, and the name of
@@ -4539,6 +4603,771 @@ def log_phase12(el: dict, pred: dict, card: str) -> None:
             f"it; counted in {r['count_s']:.2f} s [{card}]")
 
 
+# --------------------------------------------------------------- phase 13
+class plane_taps:
+    """Within ``with``, plants one fault of the elastic and durable graph
+    plane, for phase 13's checks to catch; no package file changes.
+    ``fault`` is one of :data:`PLANE_FAULTS`:
+
+    - ``split deletes left out of the stamp mirror``: at a cutover's
+      activation seal the source shard of ``store`` applies its migration
+      deletes to the host stamps, but its device ``deleted`` mirror keeps
+      the moved rows live (views built from the stamps see them on both
+      shards);
+    - ``mirrors published one version stale``: every replica plan of
+      ``store`` carries the mirror rows of the version published before
+      it, under its own version;
+    - ``recovery without the plan events``: ``GraphWal.read_control``
+      drops the control log's plan events, so a recovery replays no
+      cutover past its checkpoint (no ``store``: it has none yet)."""
+
+    def __init__(self, fault: str, store=None):
+        check(fault in PLANE_FAULTS, f"unknown fault {fault!r}")
+        self.fault, self.store = fault, store
+
+    def __enter__(self):
+        import dataclasses
+
+        import numpy as np
+        import torch
+
+        from repro_torch.graph import wal
+        from repro_torch.graph.dyngraph import MAXV
+        sg = self.store
+        self.saved = []
+        if self.fault == PLANE_FAULTS[0]:
+            real = sg._dispatch_migration
+
+            def dispatch(source, target, new_plan, epoch):
+                shard = sg.shards[source]
+                e = shard.n_edges
+                live = np.flatnonzero(shard.deleted[:e] == MAXV)
+                rows = live[new_plan.assign(shard.dst[live].astype(np.int64))
+                            != source]
+                apply = shard.apply
+
+                def leaky_apply(batch):
+                    apply(batch)
+                    if batch.version.epoch == epoch and rows.size:
+                        shard._d_deleted[torch.from_numpy(rows).to(
+                            shard.device)] = MAXV
+                        del shard.apply          # one activation seal only
+                shard.apply = leaky_apply
+                return real(source, target, new_plan, epoch)
+            self.saved.append((sg, "_dispatch_migration"))
+            sg._dispatch_migration = dispatch
+        elif self.fault == PLANE_FAULTS[1]:
+            real = sg.build_replica_plan
+            last = []
+
+            def stale_plan(version, hot_ids, use_kernel=None):
+                plan = real(version, hot_ids, use_kernel=use_kernel)
+                prev = last[-1] if last else None
+                last.append(version)
+                if prev is None or prev == version:
+                    return plan
+                old = real(prev, hot_ids, use_kernel=use_kernel)
+                return dataclasses.replace(plan, mirror_src=old.mirror_src,
+                                           mirror_dst=old.mirror_dst)
+            self.saved.append((sg, "build_replica_plan"))
+            sg.build_replica_plan = stale_plan
+        else:
+            real = wal.GraphWal.read_control
+
+            def no_plan_events(directory):
+                meta, _events, commits = real(directory)
+                return meta, [], commits
+            self.saved.append((wal.GraphWal, "read_control",
+                               staticmethod(real)))
+            wal.GraphWal.read_control = staticmethod(no_plan_events)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, *value in self.saved:
+            if value:
+                setattr(owner, name, value[0])
+            else:
+                delattr(owner, name)      # the instance's own attribute
+
+
+def view_digest(view) -> str:
+    """SHA-256 of a join view's five CSR tensors on the host, with their
+    dtypes and shapes: equal digests are byte-equal views."""
+    import hashlib
+
+    from repro_torch.device import to_host
+    h = hashlib.sha256()
+    for f in ("offsets", "src", "dst", "out_degree", "in_degree"):
+        a = to_host(getattr(view, f))
+        h.update(f"{f} {a.dtype} {a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def rebuilt_view(sg, version):
+    """The stitched view at ``version`` rebuilt from the stamps: every
+    cache of the store dropped first, so each shard's view is a full
+    rebuild through ``liveness_mask`` on its device stamp mirrors."""
+    sg._views.clear()
+    for shard in sg.shards:
+        shard._views.clear()
+    return sg.join_view(version)
+
+
+def check_stamp_mirrors(sg, what: str) -> None:
+    """Every shard's device stamp mirrors equal its host stamps."""
+    import numpy as np
+
+    from repro_torch.device import to_host
+    for i, shard in enumerate(sg.shards):
+        for f in ("created", "deleted"):
+            got = to_host(getattr(shard, f"_d_{f}"))
+            check(np.array_equal(got, getattr(shard, f)),
+                  f"{what}: shard {i}'s device {f} mirror differs from its "
+                  "host stamps")
+
+
+def plane_queries(hot, epoch: int) -> list:
+    """One epoch's 16 queries on the hottest vertices: 8 k-hop, 4
+    reachability, 2 top-k and 2 PageRank top-8."""
+    from repro_torch.graph.query import (DegreeTopK, KHop, PageRankQuery,
+                                         Reachability)
+    k = len(hot)
+    qs = [KHop(int(hot[(epoch + i) % k]), k=1 + i % 2) for i in range(8)]
+    qs += [Reachability(int(hot[i]), int(hot[(i + 5 + epoch) % k]),
+                        max_hops=4) for i in range(4)]
+    qs += [DegreeTopK(8), DegreeTopK(16), PageRankQuery(top_k=8),
+           PageRankQuery(top_k=8)]
+    return qs
+
+
+def hottest(counts):
+    """The PLANE_HOT vertices that received the most edges so far, ties
+    to the lower id."""
+    import numpy as np
+    return np.argsort(-counts, kind="stable")[:PLANE_HOT]
+
+
+def pagerank64(torch, view, init, iterations: int, damping: float = 0.85):
+    """``iterations`` PageRank iterations of ``compute.pagerank`` from
+    ``init`` (uniform when None) in float64, the join-group-by an
+    ``index_add_`` in float64: the exact computation the float32 routes
+    round."""
+    n = view.n
+    dev = view.out_degree.device
+    out_deg = torch.clamp(view.out_degree.double(), min=1.0)
+    dangling = view.out_degree == 0
+    pr = (torch.full((n,), 1.0 / n, dtype=torch.float64, device=dev)
+          if init is None else torch.as_tensor(init, device=dev).double())
+    src, dst = view.src.long(), view.dst.long()
+    for _ in range(iterations):
+        agg = torch.zeros(n, dtype=torch.float64, device=dev).index_add_(
+            0, dst, (pr / out_deg)[src])
+        agg = agg + torch.where(dangling, pr, 0.0).sum() / n
+        pr = (1.0 - damping) / n + damping * agg
+    return pr
+
+
+class bf16_contributions:
+    """Within ``with``, ``compute.pagerank``'s join-group-by sums its
+    contributions kept to bf16 (13a's PageRank control; the segment sum
+    still adds in float32)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        from repro_torch.graph import compute as gc
+        self.gc, self.real = gc, gc.join_group_by
+
+        def rounded(view, values, **kw):
+            return self.real(view, values.to(self.torch.bfloat16).float(),
+                             **kw)
+        gc.join_group_by = rounded
+        return self
+
+    def __exit__(self, *exc):
+        self.gc.join_group_by = self.real
+
+
+def pagerank_errors(torch, runs) -> dict:
+    """Each PageRank run ``runs`` recorded through the kernels against a
+    float64 rerun from the same start for the same iterations
+    (:func:`pagerank64`): the largest per-vertex |ranks - float64| /
+    float64 over the runs (``kernel``, with the float64 rank where it is
+    largest); the same for the run on the largest view made again with
+    :class:`bf16_contributions` (``bf16_control``); and each version's
+    kernel ranks (``by_version``)."""
+    import numpy as np
+
+    from repro_torch.device import to_host
+
+    def worst(view, kw, res):
+        exact = to_host(pagerank64(torch, view, kw.get("init"),
+                                   res.iterations, kw.get("damping", 0.85)))
+        err = np.abs(to_host(res.ranks).astype(np.float64) - exact) / exact
+        i = int(err.argmax())
+        return float(err[i]), float(exact[i])
+
+    out = {"kernel": 0.0, "kernel_at_rank": None}
+    by_version = {}
+    for view, kw, res in runs.runs:
+        err, rank = worst(view, kw, res)
+        if err >= out["kernel"]:
+            out["kernel"], out["kernel_at_rank"] = err, rank
+        by_version.setdefault(view.version, []).append(to_host(res.ranks))
+    view, kw, _ = max(runs.runs, key=lambda r: r[0].m)
+    with bf16_contributions(torch):
+        res = runs.real(view, **kw)
+    out["bf16_control"], out["bf16_control_at_rank"] = worst(view, kw, res)
+    out["bf16_control_iterations"] = res.iterations
+    out["by_version"] = by_version
+    return out
+
+
+def serve_plane(torch, device: str, size: dict, wal_dir,
+                fault=None) -> dict:
+    """13a: the skewed stream through a ``GraphQueryServer`` over a
+    planner-carrying, WAL-backed, fault-injected store on ``device``
+    (auto-reshard and mirrors on), with a seal fault healed mid-stream and
+    the newest split pair merged after the stream, held at every sealed
+    version against two CPU oracles (a store fed the same batches with the
+    same cutovers forced at the same activation epochs, under a server
+    with ``replicate_hot=False``, and a single ``DynamicGraph``); every
+    answer against the no-replica server's (computed on the CPU oracle
+    store, whose view at that version is held equal to the single
+    store's), or where that server is ahead (the degraded window) against
+    its recomputation on the single store; each PageRank run made through
+    the kernels run again from the same start in float64
+    (:func:`pagerank_errors`, held by :func:`elastic_plane`).
+    Launch counts are reset just before the serving loop and read just
+    after it. ``fault`` plants one of :data:`PLANE_FAULTS` in the store
+    under test (:class:`plane_taps`)."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.core.replica import ShardPlanner
+    from repro_torch.device import to_host
+    from repro_torch.graph.dyngraph import (DynamicGraph,
+                                            synthesize_skewed_stream)
+    from repro_torch.graph.query import PageRankQuery, SnapshotQueryEngine
+    from repro_torch.graph.sharded import ShardedDynamicGraph
+    from repro_torch.graph.wal import FaultInjector
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve_graph import GraphQueryServer
+
+    n, stream, adds = size["n"], size["stream"], size["adds"]
+    epochs = stream + PLANE_AFTER_MERGE
+    t = time.perf_counter()
+    # the first `stream` batches are the planner's stream; the generator
+    # draws epoch by epoch, so they equal a `stream`-epoch call's
+    batches = synthesize_skewed_stream(
+        n, epochs + PLANE_AFTER_RECOVERY, adds, seed=SEED, zipf_a=1.2,
+        delete_frac=0.2)
+    stream_s = time.perf_counter() - t
+    total = sum(len(b.add_src) for b in batches)
+    e_max = total + total // 2 + 16      # a merge re-adds a shard's rows
+    inj = FaultInjector()
+    sg = ShardedDynamicGraph(PLANE_SHARDS, n, e_max,
+                             planner=ShardPlanner(**PLANE_PLANNER),
+                             wal_dir=wal_dir,
+                             checkpoint_every=PLANE_CKPT_EVERY,
+                             fault_injector=inj, device=device)
+    server = GraphQueryServer(sg, auto_reshard=True, mirror_k=PLANE_MIRROR_K,
+                              prewarm_pagerank=True, tol=1e-6, max_iter=200)
+    cpu_sg = ShardedDynamicGraph(PLANE_SHARDS, n, e_max, device="cpu")
+    cpu_server = GraphQueryServer(cpu_sg, replicate_hot=False,
+                                  auto_reshard=False, tol=1e-6,
+                                  max_iter=200)
+    single = DynamicGraph(n, total + 16, device="cpu")
+    plain = SnapshotQueryEngine(result_cache=False, tol=1e-6, max_iter=200,
+                                use_kernel=False)
+    counts_in = np.zeros(n, np.int64)
+    digests, events, step_s, window_s = {}, [], [], []
+    answers = routed_compared = degraded_epochs = 0
+    crash = None
+    served_pr = []
+    cutover_s = {}
+    # host seconds of the loop outside the card server's steps and windows
+    host_s = {"oracles": 0.0, "views held": 0.0, "answers held": 0.0}
+
+    def timed(name):
+        real = getattr(sg, name)
+
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            cutover_s[out["activation_epoch"]] = time.perf_counter() - t0
+            return out
+        return run
+    sg.split_shard, sg.merge_shards = (timed("split_shard"),
+                                       timed("merge_shards"))
+
+    def window(e, qs, want_version, *, degraded=False):
+        nonlocal answers, routed_compared
+        for q in qs:
+            server.submit(q)
+        t0 = time.perf_counter()
+        pairs = server.run_window()
+        t1 = time.perf_counter()
+        window_s.append(t1 - t0)
+        check(len(pairs) == len(qs), f"epoch {e}: {len(pairs)} answers")
+        others = [q for q in qs if not isinstance(q, PageRankQuery)]
+        for q in others:
+            cpu_server.submit(q)
+        base = {id(req.query): resp for req, resp in cpu_server.run_window()}
+        want = {}
+        if any(base[id(q)].version != want_version for q in others):
+            # the degraded window: the no-replica server is an epoch ahead
+            view = single.join_view(want_version)
+            want = dict(zip(map(id, others), plain.execute(view, others)))
+        for req, resp in pairs:
+            q = req.query
+            check(resp.ok, f"epoch {e}: {q} failed: {resp.error}")
+            check(resp.version == want_version,
+                  f"epoch {e}: {q} answered at {resp.version}, expected "
+                  f"{want_version}")
+            check(resp.degraded == degraded,
+                  f"epoch {e}: {q} degraded flag {resp.degraded}")
+            if isinstance(q, PageRankQuery):
+                served_pr.append((q, resp))
+                continue
+            b = base[id(q)]
+            if b.version == resp.version:
+                # a recomputation on the CPU oracle store, whose view at
+                # this version hold_version has held equal to the single
+                # store's
+                check(same_answer(np, resp.value, b.value),
+                      f"epoch {e}: {q} differs from the no-replica "
+                      "server's answer")
+                routed_compared += 1
+            else:
+                check(same_answer(np, resp.value, want[id(q)]),
+                      f"epoch {e}: {q} differs from its recomputation on "
+                      f"the single CPU store at {want_version}")
+            answers += 1
+        host_s["answers held"] += time.perf_counter() - t1
+
+    def hold_version(e, v):
+        t0 = time.perf_counter()
+        d = view_digest(sg.join_view(v))
+        c = view_digest(cpu_sg.join_view(v))
+        s = view_digest(single.join_view(v))
+        check(c == s, f"epoch {e}: the two CPU oracles differ at {v}")
+        check(d == s, f"epoch {e}: the stitched view at {v} differs from "
+                      "the CPU oracles")
+        digests[v] = s
+        host_s["views held"] += time.perf_counter() - t0
+
+    caught_up = False
+    ops.reset_launch_counts()
+    t_loop = time.perf_counter()
+    try:
+        with counting_pagerank(record=True) as runs, \
+                (plane_taps(fault, sg) if fault is not None
+                 else contextlib.nullcontext()), \
+                (primed_profile(torch) if device != "cpu"
+                 else contextlib.nullcontext()) as profile:
+            for e, b in enumerate(batches[:epochs]):
+                if e == stream:
+                    newest = [m for m in sg.migrations
+                              if m["kind"] == "split"
+                              and m["target"] not in sg.retired]
+                    check(bool(newest), "the planner fired no split")
+                    with server._ingest_lock:
+                        merge = sg.merge_shards(newest[-1]["target"])
+                    events.append(dict(merge))
+                n_events = len(server.reshard_events)
+                if e == size["fault_epoch"]:
+                    inj.fail(0, e)
+                t0 = time.perf_counter()
+                server.step(b)
+                sync(torch, device)
+                step_s.append(time.perf_counter() - t0)
+                events.extend(dict(ev) for ev in
+                              server.reshard_events[n_events:])
+                t0 = time.perf_counter()
+                for ev in events:
+                    if ev["activation_epoch"] == e:
+                        cut = (cpu_sg.split_shard(ev["source"])
+                               if ev["kind"] == "split" else
+                               cpu_sg.merge_shards(ev["source"]))
+                        check(all(cut[k] == ev[k] for k in cut),
+                              f"epoch {e}: the CPU oracle's cutover {cut} "
+                              f"differs from the card's {ev}")
+                cpu_server.step(b)
+                single.apply(b)
+                counts_in += np.bincount(b.add_dst, minlength=n)
+                host_s["oracles"] += time.perf_counter() - t0
+                qs = plane_queries(hottest(counts_in), e)
+                if e == size["fault_epoch"]:
+                    st = server.stats()
+                    check(st.degraded and st.seal_failures == 1
+                          and st.stale_epochs == 1,
+                          f"epoch {e}: the seal fault did not degrade the "
+                          f"server: {st}")
+                    degraded_epochs += 1
+                    window(e, qs, batches[e - 1].version, degraded=True)
+                    inj.heal()
+                    caught_up = server.reseal() == e
+                    check(caught_up, f"epoch {e}: the server did not catch "
+                                     "up")
+                    check(not server.stats().degraded,
+                          f"epoch {e}: still degraded after the reseal")
+                hold_version(e, b.version)
+                window(e, qs, b.version)
+                if e == stream and wal_dir is not None:
+                    # a crash point past the merge's cutover: 13b recovers
+                    # a copy of the log as it stood here (its checkpoint
+                    # precedes the cutover, so the replay carries it)
+                    sg.wal.sync()
+                    for w in sg.wal_shards:
+                        w.sync()
+                    crash = {"dir": pathlib.Path(f"{wal_dir}_at_{e}"),
+                             "epoch": e, "history": sg.plan.history,
+                             "retired": set(sg.retired)}
+                    shutil.copytree(wal_dir, crash["dir"])
+            sync(torch, device)
+        loop_s = time.perf_counter() - t_loop
+        counts = ops.launch_counts()
+        stats = server.stats()
+    finally:
+        server.stop_prewarm()
+        cpu_server.stop_prewarm()
+    splits = [ev for ev in events if ev["kind"] == "split"]
+    merges = len(events) - len(splits)
+    check(len(splits) >= 1, "the planner fired no split")
+    check(merges == 1, f"{merges} merges, not the one asked for")
+    if device != "cpu":
+        check(counts["liveness_mask"] > 0, "no liveness_mask launch")
+        check(counts["segment_sum"] == runs.iterations > 0,
+              f"segment_sum launched {counts['segment_sum']} times in "
+              f"{runs.iterations} PageRank iterations")
+    pagerank = pagerank_errors(torch, runs)
+    by_version = pagerank.pop("by_version")
+    for q, resp in served_pr:
+        tops = [(np.argsort(-full, kind="stable")[:q.top_k],
+                 full[np.argsort(-full, kind="stable")[:q.top_k]])
+                for full in by_version.get(resp.version, [])]
+        check(any(same_answer(np, resp.value, s) for s in tops),
+              f"{q} at {resp.version}: not the ranks of a kernel run")
+    # every sealed version again, rebuilt from the stamps on the card
+    t0 = time.perf_counter()
+    for v, d in digests.items():
+        check(view_digest(rebuilt_view(sg, v)) == d,
+              f"the view at {v} rebuilt from the device stamps differs "
+              "from the CPU oracles")
+    rebuild_s = time.perf_counter() - t0
+    check_stamp_mirrors(sg, "13a")
+    busy = None
+    if profile is not None:
+        busy = busy_split(profile, sum(step_s) + sum(window_s))
+        busy = {k: busy[k] for k in ("busy_share", "device_ms", "launches",
+                                     "not_measured") if k in busy}
+    for ev in events:
+        ev["dispatch_s"] = cutover_s.get(ev["activation_epoch"])
+        ev["step_s"] = step_s[ev["activation_epoch"]]
+    return {"graph": sg, "batches": batches, "digests": digests,
+            "epochs": epochs, "events": events, "splits": len(splits),
+            "merges": merges, "step_s": step_s, "window_s": window_s,
+            "stream_s": stream_s, "loop_s": loop_s, "host_s": host_s,
+            "rebuild_s": rebuild_s,
+            "counts": counts, "pagerank_iterations": runs.iterations,
+            "pagerank_runs": len(runs.runs), "pagerank": pagerank,
+            "answers_checked": answers, "routed_compared": routed_compared,
+            "versions_checked": len(digests),
+            "degraded_epochs": degraded_epochs, "caught_up": caught_up,
+            "mirror_hit_rate": stats.mirror_hit_rate,
+            "mirror_hits": stats.mirror_hits,
+            "mirror_misses": stats.mirror_misses,
+            "mean_fanout": stats.mean_fanout,
+            "routed_windows": stats.routed_windows,
+            "n_shards": sg.n_shards, "busy": busy, "crash": crash,
+            "single": single, "planner_history": sg.plan.history}
+
+
+def release_wal(sg) -> None:
+    """Flush and close a store's write-ahead log (shard writers and the
+    control log) and stop its apply pool."""
+    if sg.wal is not None:
+        for w in sg.wal_shards:
+            if w is not None:
+                w.close()
+        sg.wal.close()
+    sg.shutdown()
+
+
+def hold_recovered(rec, ref, digests: dict, what: str,
+                   versions=None) -> int:
+    """A recovered store against the store that wrote its log: plan
+    history, retired set, frontier, per-shard arrays, device stamp mirrors
+    equal to its host stamps, and every view (rebuilt from the stamps) by
+    digest. Returns the versions checked."""
+    import numpy as np
+    check(rec.plan.history == ref["history"],
+          f"{what}: plan history {rec.plan.history} != {ref['history']}")
+    check(rec.retired == ref["retired"], f"{what}: retired {rec.retired}")
+    check(rec.coordinator.global_frontier == ref["frontier"],
+          f"{what}: frontier {rec.coordinator.global_frontier} != "
+          f"{ref['frontier']}")
+    if "shards" in ref:
+        check(len(rec.shards) == len(ref["shards"]),
+              f"{what}: {len(rec.shards)} shards")
+        for i, (s, want) in enumerate(zip(rec.shards, ref["shards"])):
+            check(s.n_edges == want.n_edges, f"{what}: shard {i} rows")
+            e = s.n_edges
+            for f in ("src", "dst", "created", "deleted"):
+                check(np.array_equal(getattr(s, f)[:e],
+                                     getattr(want, f)[:e]),
+                      f"{what}: shard {i} {f} differs")
+    check_stamp_mirrors(rec, what)
+    done = 0
+    for v, d in digests.items():
+        if versions is not None and v.epoch not in versions:
+            continue
+        check(view_digest(rebuilt_view(rec, v)) == d,
+              f"{what}: the view at {v} differs")
+        done += 1
+    return done
+
+
+def recover_plane(torch, device: str, a: dict, wal_dir, workdir) -> dict:
+    """13b: ``ShardedDynamicGraph.recover`` of 13a's log onto ``device``
+    and onto the CPU (from a copy), each held against 13a's store; a
+    recovery of the crash point 13a copied past the merge's cutover (its
+    replay carries the cutover); then ``PLANE_AFTER_RECOVERY`` more epochs
+    into the recovered store on ``device``, held against the single CPU
+    store."""
+    import shutil
+
+    from repro_torch.core.replica import ShardPlanner
+    from repro_torch.graph.sharded import ShardedDynamicGraph
+
+    sg = a["graph"]
+    release_wal(sg)
+    wal_bytes = sum(p.stat().st_size for p in pathlib.Path(wal_dir)
+                    .rglob("*") if p.is_file())
+    cpu_dir = pathlib.Path(workdir) / "wal_cpu"
+    shutil.copytree(wal_dir, cpu_dir)
+    ref = {"history": sg.plan.history, "retired": set(sg.retired),
+           "frontier": sg.coordinator.global_frontier, "shards": sg.shards}
+    t = time.perf_counter()
+    rec = ShardedDynamicGraph.recover(
+        wal_dir, planner=ShardPlanner(**PLANE_PLANNER), device=device)
+    sync(torch, device)
+    recover_s = time.perf_counter() - t
+    t = time.perf_counter()
+    checked = hold_recovered(rec, ref, a["digests"], f"13b on {device}")
+    held_s = {"card": time.perf_counter() - t}
+    t = time.perf_counter()
+    rec_cpu = ShardedDynamicGraph.recover(
+        cpu_dir, planner=ShardPlanner(**PLANE_PLANNER), device="cpu")
+    recover_cpu_s = time.perf_counter() - t
+    t = time.perf_counter()
+    hold_recovered(rec_cpu, ref, a["digests"], "13b on the CPU")
+    held_s["cpu"] = time.perf_counter() - t
+    release_wal(rec_cpu)
+    del rec_cpu
+    crash = a["crash"]
+    t = time.perf_counter()
+    rec_crash = ShardedDynamicGraph.recover(crash["dir"], device=device)
+    sync(torch, device)
+    crash_s = time.perf_counter() - t
+    crash_ref = {"history": crash["history"], "retired": crash["retired"],
+                 "frontier": crash["epoch"]}
+    t = time.perf_counter()
+    crash_checked = hold_recovered(rec_crash, crash_ref, a["digests"],
+                                   f"13b crash point on {device}",
+                                   versions=range(crash["epoch"] + 1))
+    held_s["crash point"] = time.perf_counter() - t
+    release_wal(rec_crash)
+    del rec_crash
+    single = a["single"]
+    more = a["batches"][a["epochs"]:]
+    t = time.perf_counter()
+    for b in more:
+        rec.apply(b)
+        single.apply(b)
+        d = view_digest(single.join_view(b.version))
+        check(view_digest(rec.join_view(b.version)) == d,
+              f"13b: the recovered store's view at {b.version} differs "
+              "from the single CPU store's")
+        a["digests"][b.version] = d
+    checked += len(more)
+    check_stamp_mirrors(rec, "13b after more epochs")
+    more_s = time.perf_counter() - t
+    release_wal(rec)
+    return {"recover_s": recover_s, "recover_cpu_s": recover_cpu_s,
+            "crash_recover_s": crash_s, "crash_epoch": crash["epoch"],
+            "crash_versions_checked": crash_checked,
+            "versions_checked": checked, "wal_bytes": wal_bytes,
+            "held_s": held_s, "more_epochs_s": more_s,
+            "n_shards": len(rec.shards)}
+
+
+def crash_demo():
+    """``examples/torch_crash_recovery_demo.py`` as a module."""
+    import importlib.util
+    path = (pathlib.Path(__file__).resolve().parent / "examples"
+            / "torch_crash_recovery_demo.py")
+    spec = importlib.util.spec_from_file_location("torch_crash_demo", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod       # its dataclasses look themselves up
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def plant_plane_faults(torch, device: str, workdir) -> dict:
+    """Each of :data:`PLANE_FAULTS` planted in a 13a run (and a 13b
+    recovery) at the small size must fail the check written for it."""
+    import shutil
+
+    from repro_torch.graph.sharded import ShardedDynamicGraph
+    out = {}
+    for i, fault in enumerate(PLANE_FAULTS[:2]):
+        wal_dir = pathlib.Path(workdir) / f"planted_{i}"
+        try:
+            run = serve_plane(torch, device, PLANE_SMALL, wal_dir,
+                              fault=fault)
+            release_wal(run["graph"])
+        except SmokeFailure as exc:
+            want = (("differs from the CPU oracles",
+                     "rebuilt from the device stamps") if i == 0
+                    else ("no-replica server",))
+            check(any(w in str(exc) for w in want),
+                  f"planted {fault!r} failed another check: {exc}")
+            out[fault] = "caught"
+        else:
+            raise SmokeFailure(f"planted {fault!r} was not caught")
+    wal_dir = pathlib.Path(workdir) / "planted_2"
+    run = serve_plane(torch, device, PLANE_SMALL, wal_dir)
+    release_wal(run["graph"])
+    crash = run["crash"]
+    copy = pathlib.Path(workdir) / "planted_2_copy"
+    shutil.copytree(crash["dir"], copy)
+    ref = {"history": crash["history"], "retired": crash["retired"],
+           "frontier": crash["epoch"]}
+    hold_recovered(ShardedDynamicGraph.recover(crash["dir"], device=device),
+                   ref, run["digests"], "sound recovery",
+                   versions=range(crash["epoch"] + 1))
+    try:
+        with plane_taps(PLANE_FAULTS[2]):
+            rec = ShardedDynamicGraph.recover(copy, device=device)
+        hold_recovered(rec, ref, run["digests"], "planted recovery",
+                       versions=range(crash["epoch"] + 1))
+    except SmokeFailure as exc:
+        check(any(w in str(exc) for w in ("plan history", "the view at")),
+              f"planted {PLANE_FAULTS[2]!r} failed another check: {exc}")
+        out[PLANE_FAULTS[2]] = "caught"
+    else:
+        raise SmokeFailure(f"planted {PLANE_FAULTS[2]!r} was not caught")
+    return out
+
+
+def elastic_plane(torch, device: str = "cuda", *, workdir,
+                  small: bool = False, card: str = "") -> dict:
+    """Phase 13: 13a :func:`serve_plane`, 13b :func:`recover_plane`, 13c
+    the port's crash-recovery demo (``kill -9`` of a serving subprocess,
+    recovery on ``device``, ``--recover``), and the planted faults, each
+    part logged as it ends; 13a's PageRank limit is held last. At
+    ``small`` size every part runs at :data:`PLANE_SMALL` (the CPU
+    rehearsal)."""
+    import dataclasses
+    import shutil
+
+    workdir = pathlib.Path(workdir)
+    workdir.mkdir(parents=True, exist_ok=True)
+    size = PLANE_SMALL if small else PLANE_FULL
+    out = {}
+    try:
+        t = time.perf_counter()
+        a = serve_plane(torch, device, size, workdir / "wal")
+        out["13a"] = {k: v for k, v in a.items()
+                      if k not in ("graph", "batches", "digests", "single",
+                                   "crash")}
+        out["13a"]["s"] = time.perf_counter() - t
+        log_13a(out["13a"], size, card)
+        t = time.perf_counter()
+        out["13b"] = recover_plane(torch, device, a, workdir / "wal",
+                                   workdir)
+        out["13b"]["s"] = time.perf_counter() - t
+        log_13b(out["13b"], card)
+        del a
+        t = time.perf_counter()
+        demo = crash_demo()
+        run = demo.CrashRun(**(PLANE_CRASH_SMALL if small
+                               else PLANE_CRASH), device=device)
+        c = demo.run_demo(run, wal_dir=workdir / "crash")
+        check(c["audited"] == c["frontier"] + 1
+              and c["final_epoch"] == run.epochs - 1,
+              f"13c: {c}")
+        out["13c"] = {**c, "s": time.perf_counter() - t,
+                      "run": dataclasses.asdict(run)}
+        log_13c(out["13c"], card)
+        t = time.perf_counter()
+        out["planted"] = plant_plane_faults(torch, device,
+                                            workdir / "planted")
+        out["planted_s"] = time.perf_counter() - t
+        log(f"phase 13 planted faults: {json.dumps(out['planted'])} "
+            f"({out['planted_s']:.3f} s)")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    pr = out["13a"]["pagerank"]
+    check(pr["kernel"] <= PLANE_PAGERANK_RTOL,
+          f"13a PageRank: kernel vs float64 {pr['kernel']} over "
+          f"{PLANE_PAGERANK_RTOL}")
+    check(pr["bf16_control"] > PLANE_PAGERANK_RTOL,
+          f"13a PageRank: the bf16 control {pr['bf16_control']} within "
+          f"{PLANE_PAGERANK_RTOL}")
+    return out
+
+
+def log_13a(a: dict, size: dict, card: str) -> None:
+    log(f"phase 13a live resharding on {size['n']} vertices ({card}): "
+        f"{a['epochs']} epochs of {size['adds']} adds (stream "
+        f"{a['stream_s']:.3f} s), {a['splits']} planner splits and 1 merge, "
+        f"{a['n_shards']} physical shards; step s "
+        + " ".join(f"{x:.3f}" for x in a["step_s"])
+        + "; window s " + " ".join(f"{x:.3f}" for x in a["window_s"])
+        + f"; cutovers {json.dumps(a['events'])}; mirror hit rate "
+        f"{a['mirror_hit_rate']:.4f} ({a['mirror_hits']} hits, "
+        f"{a['mirror_misses']} misses), mean fan-out {a['mean_fanout']:.3f}"
+        f" over {a['routed_windows']} routed windows; launches "
+        f"{a['counts']} ({a['pagerank_iterations']} PageRank iterations in "
+        f"{a['pagerank_runs']} runs; PageRank per-vertex relative error "
+        f"against float64 {json.dumps(a['pagerank'])}, limit "
+        f"{PLANE_PAGERANK_RTOL}); busy "
+        f"{json.dumps(a['busy'])}; {a['versions_checked']} versions against "
+        f"both CPU oracles, rebuilt from the stamps in "
+        f"{a['rebuild_s']:.3f} s; {a['answers_checked']} answers "
+        f"recomputed, {a['routed_compared']} against the no-replica server;"
+        f" loop {a['loop_s']:.3f} s (host outside the card server "
+        f"{json.dumps(a['host_s'])}), part {a['s']:.3f} s")
+
+
+def log_13b(b: dict, card: str) -> None:
+    log(f"phase 13b recovery ({card}): {b['wal_bytes']} WAL bytes; onto the"
+        f" card {b['recover_s']:.3f} s, onto the CPU {b['recover_cpu_s']:.3f}"
+        f" s; crash point at epoch {b['crash_epoch']} recovered in "
+        f"{b['crash_recover_s']:.3f} s ({b['crash_versions_checked']} "
+        f"versions); {b['versions_checked']} versions held (s "
+        f"{json.dumps(b['held_s'])}); {PLANE_AFTER_RECOVERY} more epochs "
+        f"ingested and held in "
+        f"{b['more_epochs_s']:.3f} s; part "
+        f"{b['s']:.3f} s")
+
+
+def log_13c(c: dict, card: str) -> None:
+    log(f"phase 13c kill -9 and --recover ({card}): {json.dumps(c['run'])};"
+        f" killed serving epoch {c['seen']} after {c['kill_s']:.3f} s; "
+        f"durable frontier {c['frontier']}, recovered in "
+        f"{c['recover_s']:.3f} s, {c['audited']} epochs audited; resumed "
+        f"{c['remaining']} epochs in {c['resume_s']:.3f} s, "
+        f"{c['compared']} answers at epoch {c['final_epoch']} equal the "
+        f"oracle's; {c['wal_bytes']} WAL bytes; part {c['s']:.3f} s")
+
+
 def main() -> int:
     root = pathlib.Path(__file__).resolve().parent
     if not (root / "src" / "repro_torch" / "csrc").is_dir():
@@ -4793,6 +5622,15 @@ def main() -> int:
     log_phase12(elastic, predict_against_card(torch, measured), card)
     log(f"phase 12 elastic restart and the dry-run against the card: "
         f"{time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    plane = elastic_plane(torch, workdir=root / "build" / "phase13",
+                          card=card)
+    log(f"phase 13 the elastic and durable graph plane: "
+        f"{time.perf_counter() - t:.3f} s")
+    for row in rows:
+        if row["name"] in plane["13a"]["counts"]:
+            # the elastic plane's serving loop (phase 13a)
+            row["launches_phase13"] = plane["13a"]["counts"][row["name"]]
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"
                     or m.startswith("repro."))

@@ -55,3 +55,58 @@ def load_chip_smoke():
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     return cs
+
+
+# ------------------------------------------- the elastic and durable plane
+def port_version(v):
+    """The port's ``Version`` equal to a reference one (or to itself)."""
+    from repro_torch.core.versioned import Version
+    return Version(v.epoch, v.number)
+
+
+def assert_batches_same(port_batches, ref_batches) -> None:
+    """The two packages' generators made the same stream from one seed:
+    equal versions, and every array field byte-identical."""
+    assert len(port_batches) == len(ref_batches)
+    for p, r in zip(port_batches, ref_batches):
+        assert p.version.pack() == r.version.pack()
+        for f in ("add_src", "add_dst", "del_src", "del_dst",
+                  "add_vertices", "vertex_types"):
+            assert_same(getattr(p, f), getattr(r, f),
+                        f"{r.version} {f}")
+
+
+def both_streams(name: str, *args, **kw):
+    """(port batches, reference batches) of the generator ``name`` of
+    ``graph/dyngraph.py`` for one seed, checked equal."""
+    from repro.graph import dyngraph as rdg
+    from repro_torch.graph import dyngraph as tdg
+    port = getattr(tdg, name)(*args, **kw)
+    ref = getattr(rdg, name)(*args, **kw)
+    assert_batches_same(port, ref)
+    return port, ref
+
+
+def assert_stores_same(port_store, ref_store, epochs, loop=None) -> None:
+    """Two stores (the port's and the reference's) stitch byte-identical
+    join views at every epoch in ``epochs`` (each at number 0), and, with
+    ``loop`` (a reference ``LoopDynamicGraph``), equal to the loop
+    oracle's CSR arrays too."""
+    from repro.core.versioned import Version as RV
+    for e in epochs:
+        rv = RV(e, 0)
+        pv = port_store.join_view(port_version(rv))
+        assert_views_same(pv, ref_store.join_view(rv), f"epoch {e}")
+        if loop is not None:
+            # the loop oracle's arrays are int64: equal values (dtypes are
+            # held by the comparison with the reference store above)
+            for got, want in zip(
+                    (pv.offsets, pv.src, pv.dst, pv.np_out_deg,
+                     pv.np_in_deg), loop.join_view_arrays(rv)):
+                assert np.array_equal(host(got), want), f"epoch {e} loop"
+
+
+def port_query(q):
+    """The port's query dataclass equal to a reference query."""
+    from repro_torch.graph import query as tq
+    return getattr(tq, type(q).__name__)(**q.__dict__)

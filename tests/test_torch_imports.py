@@ -94,3 +94,42 @@ def test_every_reference_module_has_a_counterpart():
     missing = sorted(modules("repro") - modules("repro_torch"))
     assert missing and all(m.startswith("analysis/staticcheck/")
                            for m in missing), missing
+
+
+@pytest.mark.parametrize("demo", ["torch_resharding_demo.py",
+                                  "torch_crash_recovery_demo.py"])
+def test_port_demos_run_without_jax_and_repro(demo):
+    """The port's demos, run whole on the CPU at their smoke size in a
+    subprocess, load neither JAX nor anything of ``repro`` (the crash demo's
+    server subprocesses are the port's ``serve_graph``)."""
+    path = SRC.parent / "examples" / demo
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = [{str(path)!r}, '--device', 'cpu', '--smoke']\n"
+        f"runpy.run_path({str(path)!r}, run_name='__main__')\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith('jax.') or m == 'repro'\n"
+        "             or m.startswith('repro.'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300,
+                          cwd=SRC.parent)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "OK" in proc.stdout
+
+
+@pytest.mark.parametrize("demo", ["torch_resharding_demo.py",
+                                  "torch_crash_recovery_demo.py"])
+def test_port_demos_default_to_cuda_and_raise_without_a_card(demo):
+    """With no ``--device`` a demo asks for the card, and without one it
+    raises instead of running on the host."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device runs")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, str(SRC.parent / "examples" / demo),
+                           "--smoke"], env=env, capture_output=True,
+                          text=True, timeout=300, cwd=SRC.parent)
+    assert proc.returncode != 0
+    assert "torch.cuda.is_available() is False" in proc.stderr

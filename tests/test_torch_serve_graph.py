@@ -11,7 +11,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
-from _torch_parity import assert_views_same, same_answer  # noqa: E402
+from _torch_parity import assert_views_same, port_query, same_answer  # noqa: E402
 
 from repro.core.versioned import Version as RV  # noqa: E402
 from repro.graph.dyngraph import synthesize_churn_stream  # noqa: E402
@@ -27,11 +27,6 @@ from repro_torch.train.checkpoint import CheckpointManager as TCkpt  # noqa: E40
 
 # the sizes of tests/test_serve_graph.py::_setup
 N, EPOCHS, ADDS, SHARDS, SEED = 64, 5, 60, 3, 13
-
-
-def _port_query(q):
-    """The port's query dataclass equal to a reference query."""
-    return getattr(tq, type(q).__name__)(**q.__dict__)
 
 
 def test_server_answers_match_reference():
@@ -51,7 +46,7 @@ def test_server_answers_match_reference():
             qs = list(rsg._demo_queries(rng, N, 12)) + [RPageRank()]
             for q in qs:
                 ref.submit(q)
-                port.submit(_port_query(q))
+                port.submit(port_query(q))
             want = ref.run_window()
             got = port.run_window()
             assert len(got) == len(want) == len(qs)
@@ -175,7 +170,7 @@ def test_routed_subview_holds_tensors_and_warm_traces_replays():
     ref_engine = SnapshotQueryEngine()
     rview = ref_g.join_view(v)
     window = [KHop(1, 2), KHop(4, 2), Reachability(0, 9, max_hops=3)]
-    engine.execute(view, [_port_query(q) for q in window])
+    engine.execute(view, [port_query(q) for q in window])
     ref_engine.execute(rview, window)
     assert engine.warm_traces(view) == ref_engine.warm_traces(rview) > 0
     assert engine.warm_traces(view) == 0       # replayed once per width

@@ -683,7 +683,7 @@ def test_chip_smoke_xlstm_training_rehearses_on_cpu():
 def test_chip_smoke_phase11_sizes():
     """Phase 11's configurations: the served model is the full one on the
     config's own route; the routes' chunk divides every prompt; the
-    training cut keeps 2 layers of each kind; the limits are ordered."""
+    training cut keeps a layer of each kind; the limits are ordered."""
     cs = load_chip_smoke()
     cfg = cs.xlstm_config()
     assert cfg == get_config(ARCH) and cfg.num_layers == 48
@@ -691,7 +691,7 @@ def test_chip_smoke_phase11_sizes():
     train = cs.xlstm_config("chunkwise", cs.XLSTM_CHUNK,
                             cs.XLSTM_TRAIN_LAYERS)
     assert [k for _, k in tf.Transformer(train, "meta").blocks()] \
-        == ["mlstm", "slstm"] * 2
+        == ["mlstm", "slstm"]
     for S_ in (cs.XLSTM_PROMPT, cs.XLSTM_LONG[1], cs.XLSTM_TRAIN_SEQ,
                cs.XLSTM_LAYER[1]):
         assert S_ % cs.XLSTM_CHUNK == 0 and S_ > cs.XLSTM_CHUNK
