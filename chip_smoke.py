@@ -247,6 +247,40 @@ before the result lines:
    stale, a recovery that skips the plan events); each must fail its
    check. ``python3 tools/probe_phase13.py`` builds the kernels and runs
    this phase alone (no result lines).
+14. The reference's examples as the port's entry points
+   (``examples/torch_*.py``), each through the function its command line
+   calls (``run_demos``). (a) The end-to-end demo on phase 7's store
+   (262,144 vertices, 8 epochs of 250,000 preferential-attachment adds,
+   4 shards), launch counts reset just before and read just after
+   (``liveness_mask`` launched, ``segment_sum`` once per PageRank
+   iteration), then again on the CPU path: every integer and id fact
+   equal (the straggler's frontier, dispatch, edges per shard, the
+   stitched view, 2-hop, reachability, emerging vertices, WCC, hit rates,
+   comm bytes, partitions); the stitched view equals the single store
+   byte for byte; each PageRank run per vertex within
+   ``PLANE_PAGERANK_RTOL`` of a float64 rerun with its bf16 control over
+   it; the lineage's top-10 equal to float64's but for swaps within that
+   limit. (b) The live demo at that size over 10 unpaced epochs (ingest,
+   prewarm and query threads on the card): every k-hop, reachability and
+   top-k answer equal to a single-store replay on the CPU, PageRank held
+   as in (a), the same launch checks. (c) The RPC quickstart at its own
+   sizes, the server a ``serve_graph --device cuda`` subprocess, every
+   answer replayed on the CPU. (d) The reference's default model,
+   ``qwen2.5-14b`` at full width and depth (48 layers, 14.8 B
+   parameters, GQA 5 at hd 128), through phase 9's checks on 4 x 4096 +
+   32 (``FAMILY_RUNS``' last entry; its prefill within
+   ``FAMILY_PREFILL_RTOL``, 48 ``flash_attention`` launches on
+   ``wgmma``), then the batched serving demo's other three reduced models
+   (``flash_attention`` on ``simt`` and ``lru_scan`` once a layer; each
+   prefill against the plain route within ``MODEL_RTOL``). (e) The
+   quickstart and elastic-restart demos (the attention backward
+   launched; the first loss within ``FIRST_LOSS_TOL`` of ln(vocab), the
+   loss falling; the restart at the newest checkpoint's step, its first
+   resumed loss the uninterrupted run's), then ``flash_attention``
+   (1e-2) and its backward (``BWD_RTOL_BF16``) against their plain
+   versions at each demo's training shapes, (16, 4, 2, 64, 16) and
+   (8, 4, 2, 32, 16) in bf16. The kernels line gains the default
+   model's ``flash_attention`` row.
 
 Phase 2 also holds the model kernels against their plain versions at the
 slice's shapes: ``lru_scan`` at (8, 4096, 2560) with and without ``h0``,
@@ -347,10 +381,16 @@ FIRST_LOSS_TOL = 1.0
 # phase 9: the dense-attention and frames families at full width, each as
 # (arch, layers run on the card (None: all of them), requests); the bf16
 # weights of qwen1.5-110b's 80 layers (~207 GiB) and internvl2-76b's
-# (~130 GiB) do not fit 80 GB, so their depth is cut
+# (~130 GiB) do not fit 80 GB, so their depth is cut. The last entry is
+# the reference's default model (launch/train.py's --arch, the model of
+# its quickstart, serve_batched and elastic_restart examples) at full
+# width and depth on the batch of its serve_batched example: phase 14d
+# runs it through the same machinery (29.5 GB of bf16 weights)
+DEFAULT_ARCH = "qwen2.5-14b"
 FAMILY_RUNS = (("starcoder2-7b", None, 8), ("gemma3-27b", None, 2),
                ("qwen1.5-110b", 20, 2), ("musicgen-medium", None, 8),
-               ("internvl2-76b", 32, 2))
+               ("internvl2-76b", 32, 2), (DEFAULT_ARCH, None, 4))
+PHASE9_RUNS = tuple(r for r in FAMILY_RUNS if r[0] != DEFAULT_ARCH)
 FAMILY_PROMPT, FAMILY_GEN = 4096, 32
 # the whole prefill, kernel route against plain, relative to each tensor's
 # largest magnitude. (1 + 2^-9)^layers - 1, the rule stated before the
@@ -360,10 +400,12 @@ FAMILY_PROMPT, FAMILY_GEN = 4096, 32
 # (chip_smoke.py): the larger of the kernel route's and the sound route's
 # (P rounded once to bf16, rounded_p_attention(SOUND_P_BITS)), and the
 # control, P kept to CONTROL_P_BITS significant bits, which must fail;
-# each is their geometric mean, to 3 figures
+# each is their geometric mean, to 3 figures. The default model's, by the
+# same rule on tools/probe_phase9.py --arch qwen2.5-14b: the sound route's
+# 8.30e-2 (the kernel's 7.48e-2) and the control's 3.11e-1
 FAMILY_PREFILL_RTOL = {"starcoder2-7b": 2.83e-2, "gemma3-27b": 4.75e-2,
                        "qwen1.5-110b": 1.02e-1, "musicgen-medium": 2.61e-2,
-                       "internvl2-76b": 1.51e-1}
+                       "internvl2-76b": 1.51e-1, DEFAULT_ARCH: 1.61e-1}
 SOUND_P_BITS, CONTROL_P_BITS = 8, 4
 SPLIT_DECODE_STEPS = 4              # decode steps taken apart per model
 FAMILY_TRAIN_ARCH = "musicgen-medium"
@@ -496,6 +538,25 @@ PLANE_PAGERANK_RTOL = 2.51e-4
 PLANE_FAULTS = ("split deletes left out of the stamp mirror",
                 "mirrors published one version stale",
                 "recovery without the plan events")
+
+# phase 14: the reference's examples as the port's entry points
+# (examples/torch_*.py), each driven through the function its command
+# line calls. 14a (the end-to-end demo, 8 epochs) and 14b (the live demo,
+# 10 epochs, its ingest unpaced as phase 7's is) at phase 7's store size;
+# 14c-14e at the demos' own sizes, the reference's; DEMO_SMALL is the
+# CPU rehearsal's store
+DEMO_GRAPH = {"vertices": RPC_N, "adds": RPC_ADDS, "shards": SHARDS}
+DEMO_E2E_EPOCHS, DEMO_LIVE_EPOCHS = 8, 10
+DEMO_SMALL = {"vertices": 2048, "adds": 2000, "shards": SHARDS}
+# the end-to-end demo's facts that must equal its run on the CPU path; its
+# PageRank iterations and top-10 are float32 sums in another order, held
+# against a float64 rerun instead
+E2E_FACTS = ("author_versions", "author2_fields", "straggler_frontier",
+             "dispatched", "edges_per_shard", "global_frontier",
+             "stitched_m", "hubs", "two_hop", "reach", "emerging",
+             "components", "hit_rate_before", "hit_rate_after",
+             "comm_bytes", "sharded_parts", "sharded_placement")
+QUERY_KINDS = ("KHop", "Reachability", "DegreeTopK")
 
 
 # one-element int16 fills that open each profiler window, and the name of
@@ -2925,11 +2986,12 @@ def serve_family(torch, arch: str, layers, requests: int) -> dict:
 
 
 def log_family(fam: dict, wall_s: float) -> None:
+    phase = "14d" if fam["arch"] == DEFAULT_ARCH else "9"
     agree, split, bound = (fam["prefill_check"], fam["split"],
                            fam["decode_bound"])
     cut = ("" if fam["layers"] == fam["full_layers"] else
            f" (reduced: num_layers {fam['full_layers']} -> {fam['layers']})")
-    log(f"phase 9 {fam['arch']}: {fam['layers']} layers{cut}, "
+    log(f"phase {phase} {fam['arch']}: {fam['layers']} layers{cut}, "
         f"{fam['params']} parameters built in {fam['init_s']:.3f} s; "
         f"{fam['requests']} x {FAMILY_PROMPT} prompt + {FAMILY_GEN} decode "
         f"steps: prefill {fam['prefill_s']:.3f} s, decode "
@@ -2941,20 +3003,21 @@ def log_family(fam: dict, wall_s: float) -> None:
         f"{fam['peak_gib']:.3f} GiB in the phase; launches {fam['counts']}, "
         f"flash_attention routes {fam['routes']}, by (B, Hq, Hkv, S, hd, "
         f"window) {fam['shapes']}; first codes {fam['out_head']}")
-    log(f"phase 9 {fam['arch']} layer by layer, kernel vs plain mixer: worst "
-        f"{fam['layers_worst']:.3e} (limit {MIXER_RTOL}); planted "
+    log(f"phase {phase} {fam['arch']} layer by layer, kernel vs plain mixer: "
+        f"worst {fam['layers_worst']:.3e} (limit {MIXER_RTOL}); planted "
         f"{json.dumps(fam['layers_planted'])}; per layer " + " ".join(
             f"{x:.2e}" for x in fam["layers_per_layer"])
         + f"; {fam['layer_check_s']:.3f} s")
-    log(f"phase 9 {fam['arch']} prefill kernel {agree['kernel_prefill_s']:.3f}"
-        f" s vs plain {agree['plain_prefill_s']:.3f} s: logits max rel err "
+    log(f"phase {phase} {fam['arch']} prefill kernel "
+        f"{agree['kernel_prefill_s']:.3f} s vs plain "
+        f"{agree['plain_prefill_s']:.3f} s: logits max rel err "
         f"{agree['logits_rel_err']:.3e}, worst {agree['worst']} "
         f"{agree['worst_rel_err']:.3e} (limit {agree['limit']:.4e}); planted "
         f"{json.dumps(agree['planted'])}; sound and control routes "
         f"{json.dumps(agree['stand_in'])}; per-layer cache " + " ".join(
             f"{x:.2e}" for x in agree["per_layer"])
         + f"; {fam['prefill_check_s']:.3f} s")
-    log(f"phase 9 {fam['arch']} time split: {json.dumps(split)}; model "
+    log(f"phase {phase} {fam['arch']} time split: {json.dumps(split)}; model "
         f"{wall_s:.3f} s")
 
 
@@ -3031,14 +3094,17 @@ def family_attention_shapes(cfg, requests: int,
     return calls
 
 
-def serve_families(torch, rows: list) -> None:
-    """Phase 9. First a ``flash_attention`` row at every attention shape
-    the FAMILY_RUNS will launch and a ``flash_attention_bwd`` row at
+def serve_families(torch, rows: list, runs=PHASE9_RUNS,
+                   train: bool = True) -> None:
+    """Phase 9 (and 14d, on the default model's entry of FAMILY_RUNS).
+    First a ``flash_attention`` row at every attention shape ``runs`` will
+    launch and, with ``train``, a ``flash_attention_bwd`` row at
     FAMILY_TRAIN_ARCH's training shape, on a card that holds no model
     yet; then each model through :func:`serve_family`, whose tally of attention
     calls must equal :func:`family_attention_shapes` (which proves that
     gemma3's local layers got their window) and whose ``flash_attention``
-    launch count must equal its total, and :func:`train_family`. The rows,
+    launch count must equal its total, and with ``train``
+    :func:`train_family`. The rows,
     with the launches of those runs split by shape as
     :func:`family_attention_shapes` gives them (summed over the models
     that share a shape), are appended to ``rows``."""
@@ -3046,7 +3112,7 @@ def serve_families(torch, rows: list) -> None:
     g.manual_seed(SEED + 9)
     expected = {arch: family_attention_shapes(family_config(arch, layers),
                                               requests)
-                for arch, layers, requests in FAMILY_RUNS}
+                for arch, layers, requests in runs}
     by_shape: dict = {}
     for arch, calls in expected.items():
         for key in calls:
@@ -3057,9 +3123,11 @@ def serve_families(torch, rows: list) -> None:
                     1e-2)
                 by_shape[key].update(launches=0, models=[])
             by_shape[key]["models"].append(arch)
-    bwd_row = flash_attention_bwd_case(torch, g, FLASH_FAMILY_TRAIN_SHAPE,
-                                       torch.bfloat16, None, BWD_RTOL_BF16)
-    for arch, layers, requests in FAMILY_RUNS:
+    if train:
+        bwd_row = flash_attention_bwd_case(
+            torch, g, FLASH_FAMILY_TRAIN_SHAPE, torch.bfloat16, None,
+            BWD_RTOL_BF16)
+    for arch, layers, requests in runs:
         t = time.perf_counter()
         fam = serve_family(torch, arch, layers, requests)
         check(fam["shapes"] == expected[arch],
@@ -3073,9 +3141,10 @@ def serve_families(torch, rows: list) -> None:
         for key, n in expected[arch].items():
             by_shape[key]["launches"] += n
         log_family(fam, time.perf_counter() - t)
-    bwd_row["launches"] = train_family(torch)["flash_attention_bwd"]
     rows.extend(by_shape.values())
-    rows.append(bwd_row)
+    if train:
+        bwd_row["launches"] = train_family(torch)["flash_attention_bwd"]
+        rows.append(bwd_row)
 
 
 # --------------------------------------------------------------- phase 10
@@ -5206,15 +5275,22 @@ def recover_plane(torch, device: str, a: dict, wal_dir, workdir) -> dict:
             "n_shards": len(rec.shards)}
 
 
-def crash_demo():
-    """``examples/torch_crash_recovery_demo.py`` as a module."""
+def load_demo(stem: str):
+    """``examples/<stem>.py`` as a module, registered under its stem: its
+    dataclasses look themselves up, and the demos import one another by
+    it."""
     import importlib.util
-    path = (pathlib.Path(__file__).resolve().parent / "examples"
-            / "torch_crash_recovery_demo.py")
-    spec = importlib.util.spec_from_file_location("torch_crash_demo", path)
+    if stem in sys.modules:
+        return sys.modules[stem]
+    path = pathlib.Path(__file__).resolve().parent / "examples" / f"{stem}.py"
+    spec = importlib.util.spec_from_file_location(stem, path)
     mod = importlib.util.module_from_spec(spec)
-    sys.modules[spec.name] = mod       # its dataclasses look themselves up
-    spec.loader.exec_module(mod)
+    sys.modules[stem] = mod
+    try:
+        spec.loader.exec_module(mod)
+    except BaseException:
+        del sys.modules[stem]
+        raise
     return mod
 
 
@@ -5295,7 +5371,7 @@ def elastic_plane(torch, device: str = "cuda", *, workdir,
         log_13b(out["13b"], card)
         del a
         t = time.perf_counter()
-        demo = crash_demo()
+        demo = load_demo("torch_crash_recovery_demo")
         run = demo.CrashRun(**(PLANE_CRASH_SMALL if small
                                else PLANE_CRASH), device=device)
         c = demo.run_demo(run, wal_dir=workdir / "crash")
@@ -5366,6 +5442,348 @@ def log_13c(c: dict, card: str) -> None:
         f"{c['remaining']} epochs in {c['resume_s']:.3f} s, "
         f"{c['compared']} answers at epoch {c['final_epoch']} equal the "
         f"oracle's; {c['wal_bytes']} WAL bytes; part {c['s']:.3f} s")
+
+
+# --------------------------------------------------------------- phase 14
+def top10_swaps(np, top10, exact, rtol: float) -> list:
+    """Each position where ``top10`` differs from the float64 ranks'
+    ``exact`` top 10, as [its id, float64's id, their float64 ranks'
+    relative gap]; a gap over ``rtol`` fails: only ranks that float32
+    sums cannot tell apart may swap."""
+    want = np.argsort(-exact, kind="stable")[:10]
+    swaps = []
+    for a, b in zip(top10, want.tolist(), strict=True):
+        if a != b:
+            swaps.append([int(a), int(b),
+                          float(abs(exact[a] - exact[b]) / exact[b])])
+    check(all(gap <= rtol for *_, gap in swaps),
+          f"top-10 {list(top10)} against float64's {want.tolist()}: "
+          f"swapped ranks {swaps} over {rtol}")
+    return swaps
+
+
+def demo_end_to_end(torch, device: str, small: bool = False) -> dict:
+    """14a: ``examples/torch_dynamic_graph_end_to_end.py`` (``run_demo``)
+    on ``device`` at DEMO_GRAPH's store (DEMO_SMALL when ``small``),
+    launch counts reset just before and read just after (``liveness_mask``
+    launched, ``segment_sum`` once per PageRank iteration), then again on
+    the CPU path: every fact of E2E_FACTS equal. Each PageRank run is held
+    per vertex against a float64 rerun (:func:`pagerank_errors`), and the
+    lineage's top-10 against the float64 ranks' (:func:`top10_swaps`)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.device import to_host
+    from repro_torch.kernels import ops
+
+    demo = load_demo("torch_dynamic_graph_end_to_end")
+    size = demo.Size(**(DEMO_SMALL if small else DEMO_GRAPH),
+                     epochs=DEMO_E2E_EPOCHS)
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    with counting_pagerank(record=True) as runs:
+        facts = demo.run_demo(size, device)
+        sync(torch, device)
+    run_s = time.perf_counter() - t
+    counts = ops.launch_counts()
+    if device == "cuda":
+        check(counts["liveness_mask"] > 0, "14a: no liveness_mask launch")
+        check(counts["segment_sum"] == runs.iterations > 0,
+              f"14a: segment_sum launched {counts['segment_sum']} times in "
+              f"{runs.iterations} PageRank iterations")
+    t = time.perf_counter()
+    cpu = demo.run_demo(size, "cpu")
+    cpu_s = time.perf_counter() - t
+    differ = {k: [facts[k], cpu[k]] for k in E2E_FACTS if facts[k] != cpu[k]}
+    check(not differ, f"14a: facts differ from the CPU path's: {differ}")
+    pr = pagerank_errors(torch, runs)
+    del pr["by_version"]
+    view, kw, res = runs.runs[-1]         # the lineage's recovery
+    exact = to_host(pagerank64(torch, view, kw.get("init"), res.iterations,
+                               kw.get("damping", 0.85)))
+    swaps = top10_swaps(np, facts["top10"], exact, PLANE_PAGERANK_RTOL)
+    check(pr["kernel"] <= PLANE_PAGERANK_RTOL,
+          f"14a PageRank: kernel vs float64 {pr['kernel']} over "
+          f"{PLANE_PAGERANK_RTOL}")
+    check(pr["bf16_control"] > PLANE_PAGERANK_RTOL,
+          f"14a PageRank: the bf16 control {pr['bf16_control']} within "
+          f"{PLANE_PAGERANK_RTOL}")
+    return {"size": dataclasses.asdict(size),
+            "facts": {k: facts[k] for k in E2E_FACTS},
+            "timeline_iterations": facts["timeline_iterations"],
+            "cold_iterations": facts["cold_iterations"],
+            "cpu_timeline_iterations": cpu["timeline_iterations"],
+            "top10": facts["top10"], "top10_swaps": swaps,
+            "ranks_device": facts["ranks_device"], "counts": counts,
+            "pagerank_runs": len(runs.runs),
+            "pagerank_iterations": runs.iterations, "pagerank": pr,
+            "run_s": run_s, "cpu_s": cpu_s}
+
+
+def demo_live(torch, device: str, small: bool = False) -> dict:
+    """14b: ``examples/torch_serve_graph_live.py`` (``run_demo``: a
+    background ingest thread, the server's prewarm thread and the querying
+    thread on one device) at DEMO_GRAPH's store over DEMO_LIVE_EPOCHS
+    unpaced epochs, launch counts reset just before and read just after.
+    The demo's own audit holds every k-hop, reachability and top-k answer
+    against a single-store replay on the CPU at its version; each
+    PageRank run (the prewarms' and the windows') is held per vertex
+    against a float64 rerun (:func:`pagerank_errors`)."""
+    from repro_torch.kernels import ops
+
+    demo = load_demo("torch_serve_graph_live")
+    run = demo.LiveRun(**(DEMO_SMALL if small else DEMO_GRAPH),
+                       epochs=DEMO_LIVE_EPOCHS, delay_s=0.0)
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    with counting_pagerank(record=True) as runs:
+        facts = demo.run_demo(run, device)
+        sync(torch, device)
+    run_s = time.perf_counter() - t
+    counts = ops.launch_counts()
+    if device == "cuda":
+        check(counts["liveness_mask"] > 0, "14b: no liveness_mask launch")
+        check(counts["segment_sum"] == runs.iterations > 0,
+              f"14b: segment_sum launched {counts['segment_sum']} times in "
+              f"{runs.iterations} PageRank iterations")
+    check(all(facts["audited"].get(k, 0) > 0 for k in QUERY_KINDS),
+          f"14b: audited {facts['audited']}")
+    # unpaced, the stream may drain before a window reads its last epoch
+    check(facts["versions"] > 1 and facts["prewarm_runs"] > 0,
+          f"14b: answers at {facts['versions']} versions, "
+          f"{facts['prewarm_runs']} prewarms")
+    pr = pagerank_errors(torch, runs)
+    del pr["by_version"]
+    check(pr["kernel"] <= PLANE_PAGERANK_RTOL,
+          f"14b PageRank: kernel vs float64 {pr['kernel']} over "
+          f"{PLANE_PAGERANK_RTOL}")
+    check(pr["bf16_control"] > PLANE_PAGERANK_RTOL,
+          f"14b PageRank: the bf16 control {pr['bf16_control']} within "
+          f"{PLANE_PAGERANK_RTOL}")
+    keep = ("served", "windows", "wall_s", "audited", "audit_s", "versions",
+            "final_epoch", "p50_ms", "p95_ms", "vectorized_calls",
+            "rank_warm_starts", "rank_cold_starts", "rank_cache_hits",
+            "prewarm_runs")
+    return {**{k: facts[k] for k in keep}, "counts": counts,
+            "pagerank_runs": len(runs.runs),
+            "pagerank_iterations": runs.iterations, "pagerank": pr,
+            "run_s": run_s}
+
+
+def demo_rpc(device: str) -> dict:
+    """14c: ``examples/torch_rpc_quickstart.py`` (``run_demo``) at its own
+    sizes: the port's ``serve_graph`` on ``device`` as a subprocess, 4
+    socket clients, every pinned replay byte-identical, every answer equal
+    to a single-store replay on the CPU."""
+    demo = load_demo("torch_rpc_quickstart")
+    run = demo.RpcRun()
+    t = time.perf_counter()
+    facts = demo.run_demo(run, device)
+    check(all(facts["audited"].get(k, 0) > 0 for k in QUERY_KINDS)
+          and facts["pinned"] > 0 and facts["returncode"] == 0,
+          f"14c: audited {facts['audited']}, {facts['pinned']} pinned, "
+          f"server exit {facts['returncode']}")
+    return {**{k: facts[k] for k in ("served", "windows", "audited",
+                                      "pinned", "shed_overload",
+                                      "shed_deadline")},
+            "serving": str(facts["serving"]), "s": time.perf_counter() - t}
+
+
+def demo_batched(torch, device: str) -> dict:
+    """14d, after the default model at full width: the other three models
+    of ``examples/torch_serve_batched.py`` (``run_demo``) at its sizes,
+    launch counts reset just before and read just after (one
+    ``flash_attention`` per attention layer and one ``lru_scan`` per
+    RG-LRU layer, in the prefills; reduced heads of 16 take the ``simt``
+    route); then each model's prefill through the kernels against the
+    plain versions within MODEL_RTOL (:func:`check_model_against_plain`)."""
+    import numpy as np
+
+    from repro_torch.configs import ATTN_KINDS
+    from repro_torch.kernels import ops
+
+    demo = load_demo("torch_serve_batched")
+    b = demo.Batch()
+    archs = tuple(a for a in demo.ARCHS if a != DEFAULT_ARCH)
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    served = demo.run_demo(b, device, archs=archs)
+    sync(torch, device)
+    run_s = time.perf_counter() - t
+    counts = ops.launch_counts()
+    routes = ops.route_counts()["flash_attention"]
+    kinds = [k for f in served.values() for _, k in f["model"].blocks()]
+    want = {"flash_attention": sum(k in ATTN_KINDS for k in kinds),
+            "lru_scan": kinds.count("rglru")}
+    if device == "cuda":
+        check(all(counts[k] == n for k, n in want.items())
+              and routes["simt"] == want["flash_attention"],
+              f"14d: launches {counts}, routes {routes}, expected {want}")
+    out = {"counts": {k: counts[k] for k in want}, "routes": routes,
+           "run_s": run_s, "models": {}}
+    for arch, f in served.items():
+        tokens = f["tokens"]
+        check(tokens.shape == (b.requests, b.gen) and tokens.dtype == np.int32
+              and bool(((tokens >= 0) & (tokens < f["cfg"].vocab_size))
+                       .all()),
+              f"14d {arch}: tokens of shape {tokens.shape}")
+        agree = check_model_against_plain(
+            torch, {"cfg": f["cfg"], "model": f["model"],
+                    "prompts": demo.prompts_for(f["cfg"], b)}, gen=b.gen)
+        out["models"][arch] = {
+            "s": f["s"], "tokens_per_s": f["tokens_per_s"],
+            "prefill_s": f["prefill_s"], "decode_s": f["decode_s"],
+            "sample": tokens[0][:4].tolist(),
+            "prefill_rel_err": agree["worst_rel_err"]}
+    return out
+
+
+def demo_training(torch, device: str) -> dict:
+    """14e: ``examples/torch_quickstart.py`` and
+    ``examples/torch_elastic_restart.py`` (``run_demo``) at their sizes,
+    launch counts reset just before each and read just after (on the card
+    the attention backward must have run). The first loss within
+    FIRST_LOSS_TOL of ln(vocab) and the last five steps' mean under the
+    first five's; the served tokens in range; the restart restored at the
+    newest checkpoint's step, and its first resumed loss (the restored
+    weights on the same batch) equal to the uninterrupted run's at that
+    index. On the card, then, ``flash_attention`` and
+    ``flash_attention_bwd`` against their plain versions at each demo's
+    training shape (:func:`demo_attention_cases`)."""
+    import math
+
+    import numpy as np
+
+    from repro_torch.kernels import ops
+
+    q_demo = load_demo("torch_quickstart")
+    e_demo = load_demo("torch_elastic_restart")
+    q = q_demo.Quick()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    fq = q_demo.run_demo(q, device)
+    sync(torch, device)
+    q_s = time.perf_counter() - t
+    q_counts = ops.launch_counts()
+    e = e_demo.Elastic()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    fe = e_demo.run_demo(e, device)
+    sync(torch, device)
+    e_s = time.perf_counter() - t
+    e_counts = ops.launch_counts()
+    if device == "cuda":
+        for name, c in (("quickstart", q_counts), ("elastic", e_counts)):
+            check(c["flash_attention"] > 0 and c["flash_attention_bwd"] > 0,
+                  f"14e {name}: launches {c}")
+    for name, f, cfg in (("quickstart", fq, q_demo.config()),
+                         ("elastic", fe, e_demo.config())):
+        losses = f["losses"]
+        check(all(math.isfinite(x) for x in losses + f.get("resumed", []))
+              and abs(losses[0] - math.log(cfg.vocab_size)) <= FIRST_LOSS_TOL
+              and np.mean(losses[-5:]) < np.mean(losses[:5]),
+              f"14e {name}: losses {losses}")
+    gen = fq["generated"]
+    check(gen.shape == (q.prompts, q.gen) and bool(
+        ((gen >= 0) & (gen < q_demo.config().vocab_size)).all()),
+        f"14e quickstart: generated {gen}")
+    newest = (e.steps - 1) // e.ckpt_every * e.ckpt_every + 1
+    check(fe["restored"] == newest and fe["final_step"] == newest + e.resume,
+          f"14e elastic: restored at {fe['restored']} (newest checkpoint "
+          f"{newest}), final step {fe['final_step']}")
+    check(fe["resumed"][0] == fe["losses"][newest],
+          f"14e elastic: resumed loss {fe['resumed'][0]} at batch {newest}, "
+          f"the uninterrupted run's {fe['losses'][newest]}")
+    held = {} if device != "cuda" else {
+        "quickstart": demo_attention_cases(torch, q_demo.config(), q),
+        "elastic": demo_attention_cases(torch, e_demo.config(), e)}
+    return {"held": held,
+            "quickstart": {"losses_head_tail": [fq["losses"][:3],
+                                                fq["losses"][-3:]],
+                           "first": fq["first"], "last": fq["last"],
+                           "generated": gen[0].tolist(),
+                           "counts": {k: v for k, v in q_counts.items() if v},
+                           "s": q_s},
+            "elastic": {"losses_head_tail": [fe["losses"][:3],
+                                             fe["losses"][-3:]],
+                        "restored": fe["restored"], "mesh": fe["mesh"],
+                        "mesh_device": fe["mesh_device"],
+                        "resumed": fe["resumed"],
+                        "final_step": fe["final_step"],
+                        "counts": {k: v for k, v in e_counts.items() if v},
+                        "s": e_s}}
+
+
+def demo_attention_cases(torch, cfg, run) -> list[dict]:
+    """``flash_attention`` (within 1e-2, as the bf16 cases of phase 2)
+    and ``flash_attention_bwd`` (within BWD_RTOL_BF16, its planted faults
+    over it) against their plain versions in ``cfg.dtype``, at every
+    attention shape a training step of ``run.batch`` x ``run.seq`` gives
+    (:func:`family_attention_shapes`), on fresh random inputs. Returns
+    each shape's errors and times."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 14)
+    dtype = getattr(torch, cfg.dtype)
+    out = []
+    for B, Hq, Hkv, S, hd, window in family_attention_shapes(
+            cfg, run.batch, prompt=run.seq):
+        shape = (B, Hq, Hkv, S, hd)
+        fwd = flash_attention_case(torch, g, shape, dtype, window, 1e-2)
+        bwd = flash_attention_bwd_case(torch, g, shape, dtype, window,
+                                       BWD_RTOL_BF16)
+        out.append({"shape": fwd["shape"], "route": fwd["kernel_route"],
+                    "fwd_max_abs_err": fwd["max_abs_err"],
+                    "bwd_rel_err": bwd["max_abs_err"],
+                    "bwd_planted": bwd["planted"], "fwd_ms": fwd["ms"],
+                    "bwd_ms": bwd["ms"]})
+    return out
+
+
+def run_demos(torch, rows, card: str, device: str = "cuda",
+              small: bool = False) -> dict:
+    """Phase 14, each part logged as it ends: 14a :func:`demo_end_to_end`,
+    14b :func:`demo_live`, 14c :func:`demo_rpc`, 14d the default model at
+    full width (:func:`serve_families` on its FAMILY_RUNS entry, its
+    ``flash_attention`` row appended to ``rows``) then
+    :func:`demo_batched`, 14e :func:`demo_training`. ``small`` (the CPU
+    rehearsal) runs 14a and 14b at DEMO_SMALL and leaves out the
+    full-width model."""
+    out = {}
+    t = time.perf_counter()
+    a = out["14a"] = demo_end_to_end(torch, device, small)
+    log(f"phase 14a end-to-end demo on {json.dumps(a['size'])} ({card}): "
+        f"facts equal to the CPU path's {json.dumps(a['facts'])}; PageRank "
+        f"iterations per version {a['timeline_iterations']} (cold "
+        f"{a['cold_iterations']}; the CPU path's "
+        f"{a['cpu_timeline_iterations']}), {a['pagerank_runs']} runs, "
+        f"{a['pagerank_iterations']} iterations, per-vertex relative error "
+        f"against float64 {json.dumps(a['pagerank'])} (limit "
+        f"{PLANE_PAGERANK_RTOL}); top-10 {a['top10']} on "
+        f"{a['ranks_device']}, swaps against float64 {a['top10_swaps']}; "
+        f"launches {a['counts']}; run {a['run_s']:.3f} s, CPU path "
+        f"{a['cpu_s']:.3f} s; part {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    b = out["14b"] = demo_live(torch, device, small)
+    log(f"phase 14b live demo ({card}): {json.dumps(b)}; part "
+        f"{time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    c = out["14c"] = demo_rpc(device)
+    log(f"phase 14c RPC quickstart subprocess ({card}): {json.dumps(c)}")
+    if not small:
+        t = time.perf_counter()
+        serve_families(torch, rows, runs=FAMILY_RUNS[-1:], train=False)
+        log(f"phase 14d {DEFAULT_ARCH} at full width: "
+            f"{time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    d = out["14d"] = demo_batched(torch, device)
+    log(f"phase 14d batched serving demo ({card}): {json.dumps(d)}; part "
+        f"{time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    e = out["14e"] = demo_training(torch, device)
+    log(f"phase 14e quickstart and elastic restart demos ({card}): "
+        f"{json.dumps(e)}; part {time.perf_counter() - t:.3f} s")
+    return out
 
 
 def main() -> int:
@@ -5631,6 +6049,16 @@ def main() -> int:
         if row["name"] in plane["13a"]["counts"]:
             # the elastic plane's serving loop (phase 13a)
             row["launches_phase13"] = plane["13a"]["counts"][row["name"]]
+    t = time.perf_counter()
+    demos = run_demos(torch, rows, card)
+    log(f"phase 14 the reference's examples as the port's entry points: "
+        f"{time.perf_counter() - t:.3f} s")
+    for row in rows:
+        for part in ("14a", "14b"):
+            if row["name"] in demos[part]["counts"]:
+                # the end-to-end and live demos' runs (phase 14a, 14b)
+                row[f"launches_phase{part}"] = \
+                    demos[part]["counts"][row["name"]]
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "repro"
                     or m.startswith("repro."))

@@ -77,25 +77,43 @@ SMOKE = CrashRun(vertices=600, epochs=10, adds=400, shards=2, seed=7)
 QUERIES = 12                       # compared at the final version
 
 
-def launch(run: CrashRun, wal_dir, *, recover: bool) -> subprocess.Popen:
-    """Start the port's graph server on ``run.device`` over the RPC front,
-    with its write-ahead log under ``wal_dir``."""
+def spawn_serve_graph(device, args: list[str]) -> subprocess.Popen:
+    """Start the port's graph server (``python -m
+    repro_torch.launch.serve_graph --device <device> --rpc-port 0
+    <args>``) from the repository root, with the port's sources on its
+    path; it announces its address on one line (:func:`read_until`) and
+    stops when its stdin closes."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT / "src"), *filter(None, [env.get("PYTHONPATH")])])
     cmd = [sys.executable, "-m", "repro_torch.launch.serve_graph",
-           "--device", run.device, "--rpc-port", "0",
-           "--wal-dir", str(wal_dir),
-           "--checkpoint-every", str(run.checkpoint_every),
-           "--vertices", str(run.vertices), "--epochs", str(run.epochs),
-           "--adds-per-epoch", str(run.adds), "--shards", str(run.shards),
-           "--seed", str(run.seed),
-           "--ingest-delay-s", str(run.ingest_delay_s)]
-    if recover:
-        cmd.append("--recover")
+           "--device", str(device), "--rpc-port", "0", *args]
     return subprocess.Popen(cmd, stdin=subprocess.PIPE,
                             stdout=subprocess.PIPE, text=True, env=env,
                             cwd=ROOT)
+
+
+def prebuild(device) -> None:
+    """Resolve ``device``; on a card, build the kernels here, once, so
+    that server subprocesses load the built library instead of racing to
+    build it."""
+    if resolve_device(device).type == "cuda":
+        from repro_torch.kernels import _lib
+        _lib.load()
+
+
+def launch(run: CrashRun, wal_dir, *, recover: bool) -> subprocess.Popen:
+    """Start the port's graph server on ``run.device`` over the RPC front,
+    with its write-ahead log under ``wal_dir``."""
+    args = ["--wal-dir", str(wal_dir),
+            "--checkpoint-every", str(run.checkpoint_every),
+            "--vertices", str(run.vertices), "--epochs", str(run.epochs),
+            "--adds-per-epoch", str(run.adds), "--shards", str(run.shards),
+            "--seed", str(run.seed),
+            "--ingest-delay-s", str(run.ingest_delay_s)]
+    if recover:
+        args.append("--recover")
+    return spawn_serve_graph(run.device, args)
 
 
 def read_until(proc: subprocess.Popen, pattern: str) -> re.Match:
@@ -263,12 +281,7 @@ def resume_and_compare(run: CrashRun, wal_dir, audit: dict) -> dict:
 
 def run_demo(run: CrashRun, wal_dir=None) -> dict:
     """The whole walkthrough; returns its readings (raises on a fault)."""
-    resolve_device(run.device)
-    if run.device.startswith("cuda"):
-        # build the kernels here, once, so that the server subprocesses
-        # load the built library instead of racing to build it
-        from repro_torch.kernels import _lib
-        _lib.load()
+    prebuild(run.device)
     if wal_dir is None:
         wal_dir = tempfile.mkdtemp(prefix="torch_crash_demo_wal_")
     killed = kill_mid_stream(run, wal_dir)

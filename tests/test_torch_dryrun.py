@@ -277,6 +277,106 @@ def test_dryrun_cells_roofline_and_report(tmp_path, monkeypatch):
                                       "long_500k")
 
 
+def test_variant_rows_read_tagged_records(tmp_path):
+    """report.variant_rows, the reference's perf-variant table, from two
+    single-pod records written to ``tmp_path``: the baseline (no tag) and
+    a ``--tag`` run's, here the baseline with its counted flops and bytes
+    scaled; a tag without a record is left out. Each row's terms are the
+    record's roofline."""
+    arch, shape = "recurrentgemma-2b", "decode_32k"
+    cfg = all_configs()[arch]
+    cell = SHAPES[shape]
+    counts = dryrun.count_step(cfg, cell.kind, cell.global_batch,
+                               cell.seq_len)
+    base = dryrun.run_cell(arch, shape, "single", counts=counts)
+    tagged = dict(base, tag="x4", overrides={},
+                  cost={k: 4 * v for k, v in base["cost"].items()})
+    (tmp_path / f"{arch}__{shape}__single.json").write_text(json.dumps(base))
+    (tmp_path / f"{arch}__{shape}__single__x4.json").write_text(
+        json.dumps(tagged))
+    text = report.variant_rows([(arch, shape, ""), (arch, shape, "x4"),
+                                (arch, shape, "absent")], tmp_path)
+    lines = text.splitlines()
+    assert lines[0] == ("| cell | variant | compute s | memory s | "
+                        "collective s | dominant | roofline frac |")
+    assert len(lines) == 4
+    for line, rec, tag in ((lines[2], base, "baseline"),
+                           (lines[3], tagged, "x4")):
+        r = roofline.roofline_row(rec)
+        assert line == (f"| {arch} {shape} | {tag} | {r['compute_s']:.2f} "
+                        f"| {r['memory_s']:.2f} | {r['collective_s']:.2f} "
+                        f"| {r['dominant']} | {r['roofline_fraction']:.3f} |")
+    b, t = (roofline.roofline_row(r) for r in (base, tagged))
+    assert t["memory_s"] == pytest.approx(4 * b["memory_s"])
+    assert t["roofline_fraction"] == pytest.approx(
+        b["roofline_fraction"] / 4)
+
+
+def test_variant_rows_equal_the_reference(tmp_path, monkeypatch):
+    """report.variant_rows against the reference's
+    (``repro/analysis/report.py:42``) on the same counts: the reference's
+    ``analyze`` returns each record's flops, bytes and link bytes in
+    place of its HLO text's, its rates are the port's (one card's bf16
+    tensor-core peak, HBM, NVLink), and a placeholder ``.hlo.txt`` lies
+    beside each record. The records, each cell's counts scaled by 100 so
+    the terms show at two decimals: the counted prefill_32k baseline, a
+    tag with all its flops on the tensor cores and link bytes that make
+    the collective term dominant, and decode_32k. The table is the
+    reference's, column for column, but for one known difference: where
+    a record counts float32 flops off the tensor cores, the port's
+    compute term charges them at the float32 rate (``compute_seconds``)
+    and the reference's charges every flop at one peak, so there the
+    port's compute column is at least the reference's and its other
+    columns equal."""
+    from repro.analysis import report as rreport
+
+    arch = "recurrentgemma-2b"
+    cfg = all_configs()[arch]
+    recs = {}
+    for shape in ("prefill_32k", "decode_32k"):
+        cell = SHAPES[shape]
+        base = dryrun.run_cell(arch, shape, "single", counts=dryrun.count_step(
+            cfg, cell.kind, cell.global_batch, cell.seq_len))
+        recs[shape, ""] = dict(base, cost={k: 100 * v for k, v in
+                                           base["cost"].items()})
+    cost = recs["prefill_32k", ""]["cost"]
+    recs["prefill_32k", "tc"] = dict(
+        recs["prefill_32k", ""], tag="tc", overrides={},
+        cost=dict(cost, tensor_core_flops=cost["flops"]),
+        collective_link_bytes=2e12)
+    counts = {}
+    for (shape, tag), rec in recs.items():
+        stem = f"{arch}__{shape}__single" + (f"__{tag}" if tag else "")
+        (tmp_path / f"{stem}.json").write_text(json.dumps(rec))
+        (tmp_path / f"{stem}.hlo.txt").write_text(stem)
+        counts[stem] = {"flops": rec["cost"]["flops"],
+                        "hbm_bytes": rec["cost"]["bytes_accessed"],
+                        "collective_link_bytes": rec.get(
+                            "collective_link_bytes", 0.0)}
+    monkeypatch.setattr(rreport, "RD", tmp_path)
+    monkeypatch.setattr(rreport, "analyze",
+                        lambda text, default_group: counts[text])
+    monkeypatch.setattr(rreport, "PEAK_FLOPS", roofline.BF16_TC_FLOPS)
+    monkeypatch.setattr(rreport, "HBM_BW", roofline.HBM_BW)
+    monkeypatch.setattr(rreport, "ICI_BW", roofline.LINK_BW)
+    tags = [(arch, shape, tag) for shape, tag in recs] + [
+        (arch, "prefill_32k", "absent")]
+    got = report.variant_rows(tags, tmp_path).splitlines()
+    want = rreport.variant_rows(tags).splitlines()
+    assert len(got) == len(want) == 2 + len(recs)
+    assert got[:2] == want[:2]
+    dominant = set()
+    for g, w, rec in zip(got[2:], want[2:], recs.values(), strict=True):
+        gc, wc = g.split("|"), w.split("|")
+        dominant.add(gc[6].strip())
+        if rec["cost"]["tensor_core_flops"] == rec["cost"]["flops"]:
+            assert g == w
+        else:
+            assert gc[:3] + gc[4:] == wc[:3] + wc[4:]
+            assert float(gc[3]) >= float(wc[3])
+    assert dominant == {"memory", "collective"}
+
+
 def _chip_smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")

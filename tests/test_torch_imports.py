@@ -96,31 +96,44 @@ def test_every_reference_module_has_a_counterpart():
                            for m in missing), missing
 
 
-@pytest.mark.parametrize("demo", ["torch_resharding_demo.py",
-                                  "torch_crash_recovery_demo.py"])
+# the port's demos: {file: (arguments of the CPU run, a line of its output)};
+# a demo with --smoke runs at that size, the JAX package's
+DEMOS = {"torch_resharding_demo.py": (["--smoke"], "OK"),
+         "torch_crash_recovery_demo.py": (["--smoke"], "OK"),
+         "torch_dynamic_graph_end_to_end.py": ([], "OK"),
+         "torch_serve_graph_live.py": (["--smoke"], "OK"),
+         "torch_rpc_quickstart.py": ([], "OK"),
+         "torch_serve_batched.py": ([], "xlstm-1.3b "),
+         "torch_quickstart.py": ([], "generated: "),
+         "torch_elastic_restart.py": ([], "OK")}
+
+
+@pytest.mark.parametrize("demo", list(DEMOS))
 def test_port_demos_run_without_jax_and_repro(demo):
-    """The port's demos, run whole on the CPU at their smoke size in a
-    subprocess, load neither JAX nor anything of ``repro`` (the crash demo's
-    server subprocesses are the port's ``serve_graph``)."""
+    """The port's demos, run whole on the CPU (at their smoke size where
+    they have one) in a subprocess, load neither JAX nor anything of
+    ``repro`` (the crash demo's and the RPC quickstart's server
+    subprocesses are the port's ``serve_graph``)."""
     path = SRC.parent / "examples" / demo
+    args, marker = DEMOS[demo]
     code = (
         "import runpy, sys\n"
-        f"sys.argv = [{str(path)!r}, '--device', 'cpu', '--smoke']\n"
+        f"sys.argv = [{str(path)!r}, '--device', 'cpu', *{args!r}]\n"
         f"runpy.run_path({str(path)!r}, run_name='__main__')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'repro'\n"
         "             or m.startswith('repro.'))\n"
         "assert not bad, bad\n")
-    env = dict(os.environ, PYTHONPATH=str(SRC))
+    # one torch thread: the test workers share the machine's cores
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=300,
                           cwd=SRC.parent)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert "OK" in proc.stdout
+    assert marker in proc.stdout
 
 
-@pytest.mark.parametrize("demo", ["torch_resharding_demo.py",
-                                  "torch_crash_recovery_demo.py"])
+@pytest.mark.parametrize("demo", list(DEMOS))
 def test_port_demos_default_to_cuda_and_raise_without_a_card(demo):
     """With no ``--device`` a demo asks for the card, and without one it
     raises instead of running on the host."""
@@ -129,7 +142,7 @@ def test_port_demos_default_to_cuda_and_raise_without_a_card(demo):
         pytest.skip("a card is present: the default device runs")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     proc = subprocess.run([sys.executable, str(SRC.parent / "examples" / demo),
-                           "--smoke"], env=env, capture_output=True,
+                           *DEMOS[demo][0]], env=env, capture_output=True,
                           text=True, timeout=300, cwd=SRC.parent)
     assert proc.returncode != 0
     assert "torch.cuda.is_available() is False" in proc.stderr

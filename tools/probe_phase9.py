@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Two readings behind ``chip_smoke.py`` phase 9, on one CUDA card.
 
-    python3 tools/probe_phase9.py [--out FILE]
+    python3 tools/probe_phase9.py [--out FILE] [--arch ARCH ...]
 
 (``FILE`` defaults to ``build/probe_phase9.jsonl`` at the repository
 root.) Runs ``chip_smoke.py``'s phases 1-8 as they are, then, in place of
@@ -17,6 +17,10 @@ phase 9, appends one JSON record a line to ``FILE``:
    the plain route: the kernel route's and that of
    ``chip_smoke.rounded_p_attention`` with P kept to 8, 7, 6, 5 and 4
    significant bits (worst tensor, its error, the logits' error).
+
+With ``--arch`` (repeatable; a model of ``chip_smoke.FAMILY_RUNS``) it
+builds the kernels and takes reading 2 alone for those models, with no
+earlier phase and no profiler windows.
 """
 import importlib.util
 import json
@@ -131,13 +135,15 @@ def diag_shapes(torch):
         torch.cuda.empty_cache()
 
 
-def readings(torch):
+def readings(torch, archs=None):
     import gc
 
     import numpy as np
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as tf
     for arch, layers, requests in cs.FAMILY_RUNS:
+        if archs is not None and arch not in archs:
+            continue
         cfg = cs.family_config(arch, layers)
         g = torch.Generator(device="cuda")
         g.manual_seed(cs.SEED)
@@ -197,6 +203,21 @@ if __name__ == "__main__":
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=OUT)
-    OUT = ap.parse_args().out.resolve()
+    ap.add_argument("--arch", action="append", default=None,
+                    help="take the prefill readings of this model alone")
+    args = ap.parse_args()
+    OUT = args.out.resolve()
     OUT.parent.mkdir(parents=True, exist_ok=True)
-    sys.exit(cs.main())
+    if args.arch is None:
+        sys.exit(cs.main())
+    import torch
+    from repro_torch.kernels import _lib
+    from repro_torch.nn.layers import strict_matmul
+    if not torch.cuda.is_available():
+        raise SystemExit("torch.cuda.is_available() is False")
+    strict_matmul()
+    print(cs.device_line(), flush=True)
+    _lib.load()
+    t = time.perf_counter()
+    readings(torch, set(args.arch))
+    print(f"readings {time.perf_counter() - t:.1f} s", flush=True)
