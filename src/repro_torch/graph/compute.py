@@ -29,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core.versioned import Version
 from repro_torch.device import to_host
 from repro_torch.graph.dyngraph import DynamicGraph, JoinView
@@ -111,25 +112,30 @@ def pagerank(view: JoinView, *, damping: float = 0.85, tol: float = 1e-6,
     float32 throughout; the residual (L1, float32) is read on the host
     after every iteration, as the reference's ``while_loop`` tests it."""
     n = view.n
-    device = view.out_degree.device
-    out_deg = torch.clamp(view.out_degree, min=1.0)
-    dangling = view.out_degree == 0
-    if init is None:
-        pr = torch.full((n,), 1.0 / n, dtype=torch.float32, device=device)
-    else:
-        pr = torch.as_tensor(init, device=device)
-    resid, it = float("inf"), 0
-    while resid > tol and it < max_iter:
-        contrib = pr / out_deg
-        agg = join_group_by(view, contrib, use_kernel=use_kernel)
-        if handle_dangling:
-            # dangling-mass redistribution keeps sum(pr) == 1
-            dmass = torch.where(dangling, pr, 0.0).sum()
-            agg = agg + dmass / n
-        new = (1.0 - damping) / n + damping * agg
-        resid = float((new - pr).abs().sum())
-        pr = new
-        it += 1
+    with trace.span("Compute.pagerank", m=view.m, n=n,
+                    warm=init is not None) as sp:
+        device = view.out_degree.device
+        out_deg = torch.clamp(view.out_degree, min=1.0)
+        dangling = view.out_degree == 0
+        if init is None:
+            pr = torch.full((n,), 1.0 / n, dtype=torch.float32,
+                            device=device)
+        else:
+            pr = torch.as_tensor(init, device=device)
+        resid, it = float("inf"), 0
+        while resid > tol and it < max_iter:
+            with trace.span("Compute.pagerank.iter") as step:
+                contrib = pr / out_deg
+                agg = join_group_by(view, contrib, use_kernel=use_kernel)
+                if handle_dangling:
+                    # dangling-mass redistribution keeps sum(pr) == 1
+                    dmass = torch.where(dangling, pr, 0.0).sum()
+                    agg = agg + dmass / n
+                new = (1.0 - damping) / n + damping * agg
+                resid = step.timed("wait_s", float, (new - pr).abs().sum())
+            pr = new
+            it += 1
+        sp.set(iterations=it, residual=resid)
     return PageRankResult(pr, it, resid)
 
 
@@ -200,16 +206,19 @@ def wcc(view: JoinView, max_rounds: int = 1000) -> torch.Tensor:
     """Weakly-connected components by min-label propagation (both
     directions). Returns (n,) int32 labels."""
     n = view.n
-    src_ids, dst_ids = view.src.long(), view.dst.long()
-    labels = torch.arange(n, dtype=torch.int32, device=view.src.device)
-    changed, it = True, 0
-    while changed and it < max_rounds:
-        fwd = _segment_reduce(labels[src_ids], view.dst, n, "min")
-        bwd = _segment_reduce(labels[dst_ids], view.src, n, "min")
-        new = torch.minimum(labels, torch.minimum(fwd, bwd))
-        changed = bool((new != labels).any())
-        labels = new
-        it += 1
+    with trace.span("Compute.wcc", m=view.m, n=n) as sp:
+        src_ids, dst_ids = view.src.long(), view.dst.long()
+        labels = torch.arange(n, dtype=torch.int32, device=view.src.device)
+        changed, it = True, 0
+        while changed and it < max_rounds:
+            with trace.span("Compute.wcc.round") as step:
+                fwd = _segment_reduce(labels[src_ids], view.dst, n, "min")
+                bwd = _segment_reduce(labels[dst_ids], view.src, n, "min")
+                new = torch.minimum(labels, torch.minimum(fwd, bwd))
+                changed = step.timed("wait_s", bool, (new != labels).any())
+            labels = new
+            it += 1
+        sp.set(rounds=it)
     return labels
 
 

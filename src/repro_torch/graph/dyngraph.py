@@ -61,6 +61,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core.versioned import (PACK32_NEVER, Version, pack32_checked,
                                         pack32_clamped)
 from repro_torch.device import DEFAULT_DEVICE, resolve_device, to_host
@@ -501,7 +502,10 @@ class DynamicGraph:
         # vertex adds (typed): first occurrence per id wins within a batch
         # (lengths are normalized by MutationBatch.__post_init__)
         if len(batch.add_vertices):
-            vids, first = np.unique(batch.add_vertices, return_index=True)
+            with trace.span("Write.unique", epoch=batch.version.epoch,
+                            rows=len(batch.add_vertices)):
+                vids, first = np.unique(batch.add_vertices,
+                                        return_index=True)
             new = self.v_created[vids] == MAXV
             vids, first = vids[new], first[new]
             self.v_created[vids] = v32
@@ -531,8 +535,10 @@ class DynamicGraph:
                 self.v_created[touched] = v32
                 self.n_vertices += int(np.count_nonzero(touched))
             else:
-                ends = np.unique(np.concatenate([batch.add_src,
-                                                 batch.add_dst]))
+                with trace.span("Write.unique", epoch=batch.version.epoch,
+                                rows=2 * k):
+                    ends = np.unique(np.concatenate([batch.add_src,
+                                                     batch.add_dst]))
                 new = ends[self.v_created[ends] == MAXV]
                 self.v_created[new] = v32
                 self.n_vertices += len(new)
@@ -661,12 +667,15 @@ class DynamicGraph:
         key = version.pack()
         if key in self._views:
             return self._views[key]
-        view = self._delta_patch(key, version)
-        if view is None:
-            view = self._full_rebuild(version, use_kernel=use_kernel)
-            self.view_full_builds += 1
-        else:
-            self.view_delta_patches += 1
+        with trace.span("Store.shard_view", epoch=version.epoch) as sp:
+            view = self._delta_patch(key, version)
+            if view is None:
+                view = self._full_rebuild(version, use_kernel=use_kernel)
+                self.view_full_builds += 1
+                sp.set(kind="full", m=view.m)
+            else:
+                self.view_delta_patches += 1
+                sp.set(kind="delta", m=view.m)
         self._views[key] = view
         return view
 

@@ -64,11 +64,11 @@ from __future__ import annotations
 
 import dataclasses
 import pathlib
-import time
 from typing import Callable, Optional
 
 import numpy as np
 
+from repro_torch import trace
 from repro_torch.core.replica import ShardPlanner
 from repro_torch.core.snapshotter import DataNode, IngestNode, SnapshotCoordinator
 from repro_torch.core.versioned import (Version, pack32_checked, pack32_clamped,
@@ -581,19 +581,21 @@ def stitch_join_views(version: Version, views: list[JoinView], *,
     if not views:
         raise ValueError("no shard views to stitch")
     n = views[0].n
-    keys = np.concatenate([v.np_keys for v in views])
-    src = np.concatenate([v.np_src for v in views])
-    dst = np.concatenate([v.np_dst for v in views])
-    order = np.argsort(keys, kind="stable")
-    in_deg = np.zeros(n, np.int64)
-    out_deg = np.zeros(n, np.int64)
-    for v in views:
-        in_deg += v.np_in_deg
-        out_deg += v.np_out_deg
-    if device is None:
-        device = views[0].src.device
-    return build_join_view(version, n, keys[order], src[order], dst[order],
-                           in_deg, out_deg, device=device)
+    with trace.span("Store.stitch", epoch=version.epoch, shards=len(views),
+                    m=sum(v.m for v in views)):
+        keys = np.concatenate([v.np_keys for v in views])
+        src = np.concatenate([v.np_src for v in views])
+        dst = np.concatenate([v.np_dst for v in views])
+        order = np.argsort(keys, kind="stable")
+        in_deg = np.zeros(n, np.int64)
+        out_deg = np.zeros(n, np.int64)
+        for v in views:
+            in_deg += v.np_in_deg
+            out_deg += v.np_out_deg
+        if device is None:
+            device = views[0].src.device
+        return build_join_view(version, n, keys[order], src[order],
+                               dst[order], in_deg, out_deg, device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -725,12 +727,12 @@ class ShardedDynamicGraph:
             :meth:`seal_epoch` dispatches per-shard seals (and therefore
             per-shard ``DynamicGraph.apply`` work) onto. ``0``/``1`` (the
             default) keeps the serial apply plane. Shards share no mutable
-            state — each seal touches only its own node, shard store and
-            ``shard_apply_seconds`` slot — and the store's batched NumPy
-            apply path releases the GIL inside its array kernels, so
-            N-shard epochs genuinely overlap. See :meth:`seal_epoch` for
-            the failure semantics; call :meth:`shutdown` to reap the pool
-            eagerly (it is otherwise reaped with the store).
+            state — each seal touches only its own node and shard store —
+            and the store's batched NumPy apply path releases the GIL
+            inside its array kernels, so N-shard epochs genuinely overlap.
+            See :meth:`seal_epoch` for the failure semantics; call
+            :meth:`shutdown` to reap the pool eagerly (it is otherwise
+            reaped with the store).
         device: where every shard keeps its stamp mirrors and join-view
             tensors, and where stitched views live (default ``"cuda"``;
             raises when CUDA is asked for and missing).
@@ -803,9 +805,9 @@ class ShardedDynamicGraph:
         # resolve from their tombstoned rows) but the plan routes them
         # nothing, so they seal empty epochs from the cutover on
         self.retired: set[int] = set()
-        # per-shard cumulative apply seconds — the benchmark's critical-path
-        # model of parallel shard ingestion reads these
-        self.shard_apply_seconds = [0.0] * n_shards
+        # id of the Write.seal span under way (None when no profiler
+        # records): the parent of the per-shard seals on the apply pool
+        self._seal_span: Optional[int] = None
         # -- durability plane (graph/wal.py) -------------------------------
         self.fault_injector = fault_injector
         self.wal: Optional[GraphWal] = None
@@ -857,67 +859,73 @@ class ShardedDynamicGraph:
             inj = self.fault_injector
             if inj is not None and not self._wal_replaying:
                 inj.check(shard_id, epoch)
-            t0 = time.perf_counter()
-            shard = self.shards[shard_id]
-            # payloads arrive in three shapes: whole MutationBatches (the
-            # single-shard passthrough), deferred _ShardSlices (the
-            # steady-state fast path — materialized HERE, on the parallel
-            # apply plane), and encoded row arrays (the straggler/parked
-            # and migration paths). Kinds can share an epoch (a slice
-            # parked before the shard caught up) but never a version, so
-            # merging on the packed version restores apply order.
-            direct = []
-            arrays = []
-            for p in payloads:
-                if isinstance(p, _ShardSlice):
-                    direct.append(p.materialize())
-                elif isinstance(p, MutationBatch):
-                    direct.append(p)
-                else:
-                    arrays.append(p)
-            batches = decode_payloads(arrays)
-            if direct:
-                # encoded rows always precede a same-version direct batch
-                # in arrival order (the only same-version pairing is a
-                # re-sharding migration slice + the user batch at the
-                # cutover version, and the migration dispatches first), so
-                # a stable sort + adjacent merge reproduces the encoded
-                # path's row order exactly
-                batches = _merge_same_version(
-                    sorted(batches + direct, key=lambda b: b.version.pack()))
-            # pre-check capacity across the WHOLE epoch so a failed seal is
-            # a no-op (DynamicGraph.apply is atomic per batch; this makes
-            # the seal atomic per epoch) — the epoch stays pending and can
-            # be re-sealed after intervention
-            adds = sum(len(b.add_src) for b in batches)
-            if shard.n_edges + adds > shard.e_max:
-                raise MemoryError(
-                    f"shard {shard_id}: epoch {epoch} adds {adds} edges to "
-                    f"{shard.n_edges}/{shard.e_max}; seal aborted, epoch "
-                    "left pending")
-            for batch in batches:
-                shard.apply(batch)
-            # WAL append only after the whole epoch applied: a failed
-            # seal leaves no record (the epoch re-seals; a half-applied
-            # epoch cannot exist — see the capacity pre-check above).
-            # Re-encoding the merged batches reproduces exactly what
-            # decode_payloads will regroup on replay, whichever ingest
-            # path the rows originally rode. Every seal writes a record —
-            # empty epochs included — so the durable frontier's
-            # completeness scan is well defined. wal_shards is shard-owned
-            # state like ``shards``: only this shard's seal touches its
-            # writer.
-            w = self.wal_shards[shard_id]
-            if w is not None and not self._wal_replaying:
-                if not batches:
-                    rows = _EMPTY_ROWS
-                elif len(batches) == 1:       # steady state: one batch/epoch
-                    rows = encode_payload_rows(batches[0])
-                else:
-                    rows = np.concatenate(
-                        [encode_payload_rows(b) for b in batches])
-                w.append(epoch, rows)
-            self.shard_apply_seconds[shard_id] += time.perf_counter() - t0
+            # on the apply pool this runs on a thread of its own: its
+            # parent is the span of the seal_epoch that dispatched it
+            with trace.span("Write.shard_apply", parent=self._seal_span,
+                            shard=shard_id, epoch=epoch) as sp:
+                shard = self.shards[shard_id]
+                # payloads arrive in three shapes: whole MutationBatches
+                # (the single-shard passthrough), deferred _ShardSlices
+                # (the steady-state fast path — materialized HERE, on the
+                # parallel apply plane), and encoded row arrays (the
+                # straggler/parked and migration paths). Kinds can share
+                # an epoch (a slice parked before the shard caught up)
+                # but never a version, so merging on the packed version
+                # restores apply order.
+                direct = []
+                arrays = []
+                for p in payloads:
+                    if isinstance(p, _ShardSlice):
+                        direct.append(p.materialize())
+                    elif isinstance(p, MutationBatch):
+                        direct.append(p)
+                    else:
+                        arrays.append(p)
+                batches = decode_payloads(arrays)
+                if direct:
+                    # encoded rows always precede a same-version direct
+                    # batch in arrival order (the only same-version
+                    # pairing is a re-sharding migration slice + the user
+                    # batch at the cutover version, and the migration
+                    # dispatches first), so a stable sort + adjacent
+                    # merge reproduces the encoded path's row order
+                    # exactly
+                    batches = _merge_same_version(
+                        sorted(batches + direct,
+                               key=lambda b: b.version.pack()))
+                # pre-check capacity across the WHOLE epoch so a failed
+                # seal is a no-op (DynamicGraph.apply is atomic per batch;
+                # this makes the seal atomic per epoch) — the epoch stays
+                # pending and can be re-sealed after intervention
+                adds = sum(len(b.add_src) for b in batches)
+                sp.set(rows=adds + sum(len(b.del_src) for b in batches))
+                if shard.n_edges + adds > shard.e_max:
+                    raise MemoryError(
+                        f"shard {shard_id}: epoch {epoch} adds {adds} edges "
+                        f"to {shard.n_edges}/{shard.e_max}; seal aborted, "
+                        "epoch left pending")
+                for batch in batches:
+                    shard.apply(batch)
+                # WAL append only after the whole epoch applied: a failed
+                # seal leaves no record (the epoch re-seals; a half-applied
+                # epoch cannot exist — see the capacity pre-check above).
+                # Re-encoding the merged batches reproduces exactly what
+                # decode_payloads will regroup on replay, whichever ingest
+                # path the rows originally rode. Every seal writes a
+                # record — empty epochs included — so the durable
+                # frontier's completeness scan is well defined. wal_shards
+                # is shard-owned state like ``shards``: only this shard's
+                # seal touches its writer.
+                w = self.wal_shards[shard_id]
+                if w is not None and not self._wal_replaying:
+                    if not batches:
+                        rows = _EMPTY_ROWS
+                    elif len(batches) == 1:   # steady state: one batch/epoch
+                        rows = encode_payload_rows(batches[0])
+                    else:
+                        rows = np.concatenate(
+                            [encode_payload_rows(b) for b in batches])
+                    w.append(epoch, rows)
         return on_seal
 
     # -- ingestion ---------------------------------------------------------
@@ -1059,9 +1067,9 @@ class ShardedDynamicGraph:
         With ``parallel_apply > 1``, each round's per-shard seals — and
         therefore the shards' ``DynamicGraph.apply`` work — run
         concurrently on the persistent thread pool. Shard state is
-        disjoint per thread (one node + one store + one telemetry slot
-        each); the serial seams (blocked-batch retry between rounds,
-        coordinator advance at the end) stay on the calling thread. Every
+        disjoint per thread (one node + one store each); the serial seams
+        (blocked-batch retry between rounds, coordinator advance at the
+        end) stay on the calling thread. Every
         shard of a round is awaited even when one fails, then the
         lowest-shard exception is re-raised: exactly like the serial
         plane, a failing shard's epoch stays pending and re-sealable (I6)
@@ -1069,22 +1077,29 @@ class ShardedDynamicGraph:
         keeps the epoch invisible to queries, so the epoch aborts
         atomically from the store's point of view.
         """
-        while any(n.local_frontier < epoch for n in self.nodes):
-            self.ingest_node.retry_blocked_batches()
-            lagging = [n for n in self.nodes if n.local_frontier < epoch]
-            if self.parallel_apply > 1 and len(lagging) > 1:
-                futures = [self._executor().submit(
-                    n.seal_epoch, n.local_frontier + 1) for n in lagging]
-                errors = [f.exception() for f in futures]   # barrier
-                for err in errors:
-                    if err is not None:
-                        raise err
-            else:
-                for node in lagging:
-                    node.seal_epoch(node.local_frontier + 1)
-        self.ingest_node.retry_blocked_batches()
-        frontier = self.coordinator.advance()
-        self._trim_ingest_log()
+        with trace.span("Write.seal", epoch=epoch) as sp:
+            self._seal_span = sp.id
+            try:
+                while any(n.local_frontier < epoch for n in self.nodes):
+                    self.ingest_node.retry_blocked_batches()
+                    lagging = [n for n in self.nodes
+                               if n.local_frontier < epoch]
+                    if self.parallel_apply > 1 and len(lagging) > 1:
+                        futures = [self._executor().submit(
+                            n.seal_epoch, n.local_frontier + 1)
+                            for n in lagging]
+                        errors = [f.exception() for f in futures]  # barrier
+                        for err in errors:
+                            if err is not None:
+                                raise err
+                    else:
+                        for node in lagging:
+                            node.seal_epoch(node.local_frontier + 1)
+                self.ingest_node.retry_blocked_batches()
+                frontier = self.coordinator.advance()
+                self._trim_ingest_log()
+            finally:
+                self._seal_span = None
         return frontier
 
     def seal_shard(self, shard_id: int, epoch: int) -> int:
@@ -1201,7 +1216,6 @@ class ShardedDynamicGraph:
             node = DataNode(target, on_seal=self._on_seal(target))
             node.local_frontier = activation - 1
             self.nodes.append(node)
-            self.shard_apply_seconds.append(0.0)
             self.wal_shards.append(None)   # writers attach after replay
             src, tgt = a, b
         elif op == "merge":
@@ -1236,7 +1250,6 @@ class ShardedDynamicGraph:
         for i in range(len(self.shards), plan.n_total):
             self.shards.append(self._new_shard())
             self.nodes.append(DataNode(i, on_seal=self._on_seal(i)))
-            self.shard_apply_seconds.append(0.0)
             self.wal_shards.append(None)
         self.plan = plan
         self.route = plan.assign
@@ -1479,7 +1492,6 @@ class ShardedDynamicGraph:
         node.local_frontier = activation - 1
         self.shards.append(shard)
         self.nodes.append(node)      # shared list: coordinator+ingest see it
-        self.shard_apply_seconds.append(0.0)
         self.wal_shards.append(
             self.wal.shard_wal(target) if self.wal is not None else None)
         migrated = self._dispatch_migration(hot_shard, target, new_plan,
@@ -1705,12 +1717,13 @@ class ShardedDynamicGraph:
         from the pre-migration rows. Raises ``ValueError`` if ``version``
         is not globally sealed."""
         key = version.pack()
-        if key in self._views:
-            return self._views[key]
-        view = stitch_join_views(version,
-                                 self.shard_views(version,
-                                                  use_kernel=use_kernel),
-                                 device=self.device)
+        with trace.span("Store.join_view", epoch=version.epoch, version=key,
+                        cached=key in self._views):
+            if key in self._views:
+                return self._views[key]
+            view = stitch_join_views(
+                version, self.shard_views(version, use_kernel=use_kernel),
+                device=self.device)
         self._views[key] = view
         return view
 
@@ -1728,19 +1741,22 @@ class ShardedDynamicGraph:
         than the snapshot it is consulted for, because it is derived from
         it. Raises ``ValueError`` if ``version`` is not globally sealed."""
         self._gate(version)
-        views = self.shard_views(version, use_kernel=use_kernel)
-        n = self.n_max
-        mirrored = np.zeros(n, bool)
-        ids = np.asarray(hot_ids, np.int64).reshape(-1)
-        mirrored[ids[(ids >= 0) & (ids < n)]] = True
-        g = self.join_view(version, use_kernel=use_kernel)
-        sel = mirrored[g.np_src]
-        presence = np.zeros((len(views), n), bool)
-        for j, v in enumerate(views):
-            presence[j, v.np_src] = True
-        pid = self.plan.plan_id if self.plan is not None else -1
-        return ReplicaPlan(pid, version, mirrored,
-                           g.np_src[sel], g.np_dst[sel], presence)
+        with trace.span("Write.replica_plan", epoch=version.epoch) as sp:
+            views = self.shard_views(version, use_kernel=use_kernel)
+            n = self.n_max
+            mirrored = np.zeros(n, bool)
+            ids = np.asarray(hot_ids, np.int64).reshape(-1)
+            mirrored[ids[(ids >= 0) & (ids < n)]] = True
+            g = self.join_view(version, use_kernel=use_kernel)
+            sel = mirrored[g.np_src]
+            presence = np.zeros((len(views), n), bool)
+            for j, v in enumerate(views):
+                presence[j, v.np_src] = True
+            pid = self.plan.plan_id if self.plan is not None else -1
+            plan = ReplicaPlan(pid, version, mirrored,
+                               g.np_src[sel], g.np_dst[sel], presence)
+            sp.set(mirrored=plan.n_mirrored)
+        return plan
 
     def gc_views(self, keep_latest: int = 4) -> int:
         """Ladder-GC every shard's view cache plus the stitched cache,

@@ -60,6 +60,7 @@ from typing import Callable, Iterable, Mapping, Optional, Sequence
 
 import numpy as np
 
+from repro_torch import trace
 from repro_torch.core.replica import MirrorPlanner
 from repro_torch.core.versioned import Version
 from repro_torch.graph.dyngraph import (JoinView, MutationBatch, prune_retired,
@@ -361,37 +362,39 @@ class GraphQueryServer:
         stitch (O(delta), cached per version) is paid once per seal by the
         ingest side so no query ever stitches — or waits for the write
         lock — on its hot path."""
-        with self._ingest_lock:
-            v = self.graph.latest_sealed()
-            if v is None:
-                return
-            view = self.graph.join_view(v)
-            floor = self.graph.plan_floor()
-            routed = None
-            if self.replicate_hot:
-                # mirror refresh rides the publish: nominate from the
-                # ledger's vertex heat, rebuild the plan from THIS sealed
-                # version's own views — a mirror is exactly as fresh as
-                # the snapshot it serves, never staler (invariant I10)
-                hot = self._mirror_planner.nominate(
-                    self.graph.access_stats.vertex_heat)
-                plan = self.graph.build_replica_plan(v, hot)
-                routed = RoutedSnapshot(plan, self.graph.shard_views(v))
-        with self._serve_lock:
-            self._serving = (v, view, routed)
-            self._published[v.pack()] = view
-            # same ladder retention as the graph-side caches, and retired
-            # routing plans drop outright — but never the serving entry
-            prune_retired(self._published, floor)
-            prune_views(self._published, self.view_keep)
-        if self.prewarm_traces:
-            # hand the new snapshot to the prewarm worker (coalescing
-            # one-slot mailbox: a faster seal cadence overwrites the slot
-            # and the worker only ever warms the newest target)
-            with self._prewarm_lock:
-                self._prewarm_target = (v, view, routed)
-            self._prewarm_wake.set()
-            self._ensure_prewarm_thread()
+        with trace.span("Write.publish") as sp:
+            with self._ingest_lock:
+                v = self.graph.latest_sealed()
+                if v is None:
+                    return
+                sp.set(epoch=v.epoch, version=v.pack())
+                view = self.graph.join_view(v)
+                floor = self.graph.plan_floor()
+                routed = None
+                if self.replicate_hot:
+                    # mirror refresh rides the publish: nominate from the
+                    # ledger's vertex heat, rebuild the plan from THIS sealed
+                    # version's own views — a mirror is exactly as fresh as
+                    # the snapshot it serves, never staler (invariant I10)
+                    hot = self._mirror_planner.nominate(
+                        self.graph.access_stats.vertex_heat)
+                    plan = self.graph.build_replica_plan(v, hot)
+                    routed = RoutedSnapshot(plan, self.graph.shard_views(v))
+            with self._serve_lock:
+                self._serving = (v, view, routed)
+                self._published[v.pack()] = view
+                # same ladder retention as the graph-side caches, and retired
+                # routing plans drop outright — but never the serving entry
+                prune_retired(self._published, floor)
+                prune_views(self._published, self.view_keep)
+            if self.prewarm_traces:
+                # hand the new snapshot to the prewarm worker (coalescing
+                # one-slot mailbox: a faster seal cadence overwrites the slot
+                # and the worker only ever warms the newest target)
+                with self._prewarm_lock:
+                    self._prewarm_target = (v, view, routed)
+                self._prewarm_wake.set()
+                self._ensure_prewarm_thread()
 
     def _ensure_prewarm_thread(self) -> None:
         if self._prewarm_thread is not None or self._prewarm_stop.is_set():
@@ -495,27 +498,37 @@ class GraphQueryServer:
         backlogged epoch, because ``seal_epoch`` seals all lagging shards
         through its target. Ingest-side errors (bad version, malformed
         batch) still raise: they are caller bugs, not faults."""
-        self._drain_touches()
-        with self._ingest_lock:
-            if self.auto_reshard:
-                event = self.graph.maybe_reshard()
-                if event is not None:
-                    self.reshard_events.append(event)
-            self.graph.ingest(batch)
-            try:
-                self.graph.seal_epoch(batch.version.epoch)
-            except (ShardFaultError, MemoryError, OSError):
-                self.seal_failures += 1
-                if batch.version.epoch not in self._seal_backlog:
-                    self._seal_backlog.append(batch.version.epoch)
-                self._degraded_hint = True
-                return
-            if self._seal_backlog:
-                # this seal closed every epoch <= batch's — including the
-                # whole backlog (the frontier is the min local frontier)
-                self._seal_backlog.clear()
-                self._degraded_hint = False
-        self._maybe_prewarm()
+        epoch = batch.version.epoch
+        with trace.span("Write.step", epoch=epoch, adds=len(batch.add_src),
+                        deletes=len(batch.del_src)):
+            with trace.span("Write.drain_touches", epoch=epoch):
+                self._drain_touches()
+            with self._ingest_lock:
+                if self.auto_reshard:
+                    with trace.span("Write.reshard_tick",
+                                    epoch=epoch) as sp:
+                        event = self.graph.maybe_reshard()
+                        sp.set(event=None if event is None
+                               else event["kind"])
+                    if event is not None:
+                        self.reshard_events.append(event)
+                with trace.span("Write.ingest", epoch=epoch):
+                    self.graph.ingest(batch)
+                try:
+                    self.graph.seal_epoch(epoch)
+                except (ShardFaultError, MemoryError, OSError):
+                    self.seal_failures += 1
+                    if epoch not in self._seal_backlog:
+                        self._seal_backlog.append(epoch)
+                    self._degraded_hint = True
+                    return
+                if self._seal_backlog:
+                    # this seal closed every epoch <= batch's — including
+                    # the whole backlog (the frontier is the min local
+                    # frontier)
+                    self._seal_backlog.clear()
+                    self._degraded_hint = False
+            self._maybe_prewarm()
 
     def reseal(self) -> int:
         """Retry every pending seal (after ``FaultInjector.heal`` or
