@@ -63,7 +63,13 @@ before the result lines:
    just after: ``segment_sum`` once per PageRank iteration,
    ``liveness_mask`` once per view rebuilt from the stamps. The last
    ranks against the plain route within atol 1e-6; WCC and the emerging
-   vertices. Then ``partition_graph(view, 16, hub_k=64)`` and the three
+   vertices. WCC's kernel route (``wcc_round``, one launch a round)
+   against its plain route, bit-equal labels at caps 1, 2, 3 and the
+   default, on the last view, a 100,000-vertex path whose ids fall along
+   it (also at caps 50 and to the end), a star of 2^20 in-edges, self-loops
+   and duplicate edges, and no edges; launches equal the plain rounds; two
+   planted faults (in place, half the edges) must be caught. Then
+   ``partition_graph(view, 16, hub_k=64)`` and the three
    modes of ``distributed_join_group_by`` against the float64 sum and
    ``compute.join_group_by`` within a derived bound (``join_bound``), with
    two planted faults that must exceed it; ``run_edge_centric`` against
@@ -353,6 +359,15 @@ MODEL_RTOL = 5e-2
 # under its time budget)
 OFFLINE_N, OFFLINE_EPOCHS, OFFLINE_ADDS = 1 << 20, 4, 1_000_000
 PARTS, HUB_K = 16, 64                  # benchmarks/run.py's replica axis
+# phase 6's WCC check: the kernel route against the plain route, labels
+# compared at each cap (None: the default, 1000 rounds; on the path, whose
+# minimum id lies at its far end, WCC_PATH_N + 1: to the end); the star's
+# hub takes WCC_STAR in-edges; each fault of WCC_FAULTS must be caught
+WCC_CAPS = (1, 2, 3, None)
+WCC_PATH_N, WCC_PATH_CAP = 100_000, 50
+WCC_STAR = 1 << 20
+WCC_FAULTS = ("one buffer as both input and output (in place)",
+              "the edge list cut to its first half")
 PREGEL_STREAM = (8192, 4, 8192)        # vertices, epochs, adds per epoch
 EDGE_CENTRIC_ITERS = 40
 # per-rank relative bound of the host float64 models against the float32
@@ -1885,6 +1900,160 @@ def offline_timeline(torch, device: str, n: int, epochs: int,
             "pagerank_max_diff": diff, "components": components,
             "wcc_s": wcc_s, "emerging": top[:3].tolist(),
             "max_in_degree": int(last.in_degree.max())}
+
+
+def edge_view(torch, src, dst, n: int, device: str):
+    """A ``JoinView`` of the edges (``src``, ``dst``) (NumPy ids), rows in
+    the store's (dst, src) order, on ``device``."""
+    import numpy as np
+
+    from repro_torch.core.versioned import Version
+    from repro_torch.graph.dyngraph import build_join_view
+
+    src, dst = np.asarray(src, np.int64), np.asarray(dst, np.int64)
+    order = np.lexsort((src, dst))
+    src, dst = src[order], dst[order]
+    return build_join_view(Version(0, 0), n, (dst << 32) | src, src, dst,
+                           np.bincount(dst, minlength=n),
+                           np.bincount(src, minlength=n), device=device)
+
+
+def wcc_graphs(torch, view) -> dict:
+    """{name: (view, caps)} for :func:`check_wcc_kernel`: ``view``; a path
+    whose ids fall along it (the least id, 0, travels one hop a round from
+    the far end); a star of ``WCC_STAR`` in-edges into its largest id (one
+    hub segment across thousands of warps); a graph of self-loops and
+    duplicate edges; a graph without edges."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    path = np.arange(WCC_PATH_N - 1, 0, -1)
+    pairs = rng.integers(0, 5000, (20_000, 2))
+    loops = rng.integers(0, 5000, 3000)
+    dup_src = np.concatenate([np.repeat(pairs[:, 0], 3), loops])
+    dup_dst = np.concatenate([np.repeat(pairs[:, 1], 3), loops])
+    return {
+        "view": (view, WCC_CAPS),
+        "path": (edge_view(torch, path, path - 1, WCC_PATH_N, "cuda"),
+                 (1, 2, 3, WCC_PATH_CAP, WCC_PATH_N + 1)),
+        "star": (edge_view(torch, np.arange(WCC_STAR),
+                           np.full(WCC_STAR, WCC_STAR), WCC_STAR + 1,
+                           "cuda"), WCC_CAPS),
+        "loops and duplicates": (edge_view(torch, dup_src, dup_dst, 5000,
+                                           "cuda"), WCC_CAPS),
+        "no edges": (edge_view(torch, [], [], 1000, "cuda"), WCC_CAPS),
+    }
+
+
+def wcc_rounds(torch, fn):
+    """``fn()`` (one ``compute.wcc`` call) under a CPU profiler, so the
+    program's spans record: (its labels, its ``Compute.wcc`` span's
+    rounds and route)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import trace
+
+    trace.clear()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            labels = fn()
+        (call,) = [s for s in trace.spans() if s.name == "Compute.wcc"]
+    finally:
+        trace.clear()
+    return labels, call.attrs["rounds"], call.attrs["route"]
+
+
+def compare_wcc(torch, graphs: dict, first: bool = False):
+    """Every graph of ``graphs`` at each of its caps through ``compute.wcc``
+    on the kernel route and on the plain route: (the mismatches, one row
+    per comparison). Stops at the first mismatch when ``first``. On the
+    path without a binding cap the plain route takes WCC_PATH_N rounds
+    (its minimum id moves one hop a round) and runs unprofiled."""
+    from repro_torch.graph import compute as gc
+    from repro_torch.kernels import ops
+
+    bad, rows = [], {}
+    for name, (g, caps) in graphs.items():
+        for cap in caps:
+            kw = {} if cap is None else {"max_rounds": cap}
+            ops.reset_launch_counts()
+            t = time.perf_counter()
+            got = gc.wcc(g, **kw)
+            torch.cuda.synchronize()
+            kernel_s = time.perf_counter() - t
+            launches = ops.launch_counts()["wcc_round"]
+            t = time.perf_counter()
+            if cap == WCC_PATH_N + 1:
+                want, rounds, route = gc.wcc(g, use_kernel=False, **kw), \
+                    WCC_PATH_N, "plain"
+            else:
+                want, rounds, route = wcc_rounds(
+                    torch, lambda: gc.wcc(g, use_kernel=False, **kw))
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t
+            key = f"{name} cap {cap or 'default'}"
+            check(route == "plain", f"WCC {key}: the plain call's route "
+                                    f"is {route}")
+            differ = int((got != want).sum())
+            if got.dtype != torch.int32 or want.dtype != torch.int32 \
+                    or differ or launches != rounds:
+                bad.append(f"{key}: {differ} labels differ, {launches} "
+                           f"launches against {rounds} plain rounds")
+                if first:
+                    return bad, rows
+            rows[key] = {"m": g.m, "rounds": rounds, "launches": launches,
+                         "kernel_s": round(kernel_s, 4),
+                         "plain_s": round(plain_s, 4)}
+    return bad, rows
+
+
+@contextlib.contextmanager
+def wcc_in_place(torch):
+    """Within ``with``, ``ops.wcc_round`` calls the raw C entry with one
+    buffer as input and output: a round then reads labels lowered earlier
+    in the same round (propagation within the round), which the wrapper
+    refuses. Its launches count as the wrapper's would."""
+    from repro_torch.kernels import _lib, ops
+    from repro_torch.kernels import wcc as cuda_wcc
+
+    real = ops.wcc_round
+
+    def faulty(src, dst, labels, *, out, changed, use_kernel):
+        out.copy_(labels)
+        code = _lib.load().rt_wcc_round(
+            src.data_ptr(), dst.data_ptr(), src.shape[0], out.data_ptr(),
+            out.data_ptr(), out.shape[0], changed.data_ptr(),
+            _lib.stream_of(out))
+        _lib.check(code, "wcc_round")
+        cuda_wcc.wcc_round.launches += 1
+        return out, changed
+    ops.wcc_round = faulty
+    try:
+        yield
+    finally:
+        ops.wcc_round = real
+
+
+def check_wcc_kernel(torch, view) -> dict:
+    """WCC's kernel route (one ``wcc_round`` launch a round) against its
+    plain route (``use_kernel=False``) on the card: bit-equal int32 labels
+    at every cap of :func:`wcc_graphs`, the kernel's launches equal to the
+    plain route's rounds. Each of ``WCC_FAULTS`` must be caught."""
+    graphs = wcc_graphs(torch, view)
+    bad, rows = compare_wcc(torch, graphs)
+    check(not bad, f"WCC: the kernel route differs from the plain route: "
+                   f"{bad}")
+    faults = {WCC_FAULTS[0]: lambda: wcc_in_place(torch),
+              WCC_FAULTS[1]: lambda: planted("wcc_round", lambda a, kw: (
+                  (a[0][:a[0].shape[0] // 2], a[1][:a[1].shape[0] // 2],
+                   *a[2:]), kw))}
+    caught = {}
+    for name, fault in faults.items():
+        with fault():
+            found, _ = compare_wcc(torch, graphs, first=True)
+        check(bool(found), f"planted WCC fault not caught: {name}")
+        caught[name] = found[0]
+    return {"compared": rows, "planted": caught}
 
 
 def check_partition_modes(torch, view, n_parts: int, hub_k: int) -> dict:
@@ -5926,6 +6095,11 @@ def main() -> int:
         f"{tl['max_in_degree']}; last ranks kernel vs plain "
         f"{tl['pagerank_max_diff']:.3e}; WCC {tl['components']} components "
         f"in {tl['wcc_s']:.3f} s; emerging vertices {tl['emerging']}")
+    wcc = check_wcc_kernel(torch, view)
+    log(f"phase 6 WCC kernel route vs plain route, bit-equal labels at "
+        f"every cap (launches against the plain rounds, seconds): "
+        f"{json.dumps(wcc['compared'])}; planted faults caught: "
+        f"{json.dumps(wcc['planted'])}")
     parts = check_partition_modes(torch, view, PARTS, HUB_K)
     log(f"phase 6 partitioned join-group-by (one card emulating {PARTS} "
         f"partitions; ms per call, comm_model bytes per superstep): "

@@ -15,7 +15,8 @@ usable while mutations stream (snapshot isolation via the versioned store).
 
 Every function computes on the view's device and returns tensors there
 (host NumPy only where the reference returns NumPy: the timelines and
-``emerging_vertices``). The frontier and min/max steps are plain
+``emerging_vertices``). A WCC round on a CUDA view is the hand-written
+``wcc_round`` kernel; the frontier and other min/max steps are plain
 ``scatter_reduce_``; iteration loops that the reference runs as
 ``lax.while_loop`` are Python loops that test their condition on the host
 each round. Dtypes follow the reference with 64-bit types off: int32 ids
@@ -202,11 +203,23 @@ def sssp(view: JoinView, source: int, *,
 
 
 # ----------------------------------------------------------------------- WCC
-def wcc(view: JoinView, max_rounds: int = 1000) -> torch.Tensor:
+def wcc(view: JoinView, max_rounds: int = 1000, *,
+        use_kernel: Optional[bool] = None) -> torch.Tensor:
     """Weakly-connected components by min-label propagation (both
-    directions). Returns (n,) int32 labels."""
+    directions), synchronous rounds until no label falls or ``max_rounds``.
+    Returns (n,) int32 labels. On a CUDA view a round is one pass of the
+    ``wcc_round`` kernel over the edges, ping-ponging two label buffers;
+    on the CPU it is two scatter-mins (``use_kernel`` overrides; see
+    :mod:`repro_torch.kernels.ops`). Both give the same labels after every
+    round."""
     n = view.n
-    with trace.span("Compute.wcc", m=view.m, n=n) as sp:
+    kernel = ops.wants_kernel(view.src, use_kernel)
+    with trace.span("Compute.wcc", m=view.m, n=n,
+                    route="kernel" if kernel else "plain") as sp:
+        if kernel:
+            labels, it = _wcc_kernel_rounds(view, max_rounds)
+            sp.set(rounds=it)
+            return labels
         src_ids, dst_ids = view.src.long(), view.dst.long()
         labels = torch.arange(n, dtype=torch.int32, device=view.src.device)
         changed, it = True, 0
@@ -220,6 +233,23 @@ def wcc(view: JoinView, max_rounds: int = 1000) -> torch.Tensor:
             it += 1
         sp.set(rounds=it)
     return labels
+
+
+def _wcc_kernel_rounds(view: JoinView,
+                       max_rounds: int) -> tuple[torch.Tensor, int]:
+    """``wcc``'s rounds on the kernel route: (labels, rounds)."""
+    labels = torch.arange(view.n, dtype=torch.int32, device=view.src.device)
+    spare = torch.empty_like(labels)
+    flag = torch.empty(1, dtype=torch.int32, device=labels.device)
+    changed, it = True, 0
+    while changed and it < max_rounds:
+        with trace.span("Compute.wcc.round") as step:
+            ops.wcc_round(view.src, view.dst, labels, out=spare,
+                          changed=flag, use_kernel=True)
+            changed = step.timed("wait_s", bool, flag)
+        labels, spare = spare, labels
+        it += 1
+    return labels, it
 
 
 # ------------------------------------------------------------ online queries

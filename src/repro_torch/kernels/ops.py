@@ -25,6 +25,7 @@ from repro_torch.kernels import lru_scan as _lru
 from repro_torch.kernels import ref
 from repro_torch.kernels import segment_sum as _ss
 from repro_torch.kernels import snapshot_resolve as _sr
+from repro_torch.kernels import wcc as _wcc
 
 # the CUDA wrappers, each carrying its own ``launches`` count
 _WRAPPERS = {"liveness_mask": _sr.liveness_mask,
@@ -33,7 +34,8 @@ _WRAPPERS = {"liveness_mask": _sr.liveness_mask,
              "lru_scan": _lru.lru_scan,
              "lru_scan_bwd": _lru.lru_scan_bwd,
              "flash_attention": _fa.flash_attention,
-             "flash_attention_bwd": _fa.flash_attention_bwd}
+             "flash_attention_bwd": _fa.flash_attention_bwd,
+             "wcc_round": _wcc.wcc_round}
 
 
 def wants_kernel(t: torch.Tensor, use_kernel) -> bool:
@@ -83,6 +85,22 @@ def flash_attention(q, k, v, *, causal=True, window=None, use_kernel=None):
     if wants_kernel(q, use_kernel):
         return _fa.FlashAttentionFn.apply(q, k, v, causal, window)
     return ref.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def wcc_round(src, dst, labels, *, out=None, changed=None, use_kernel=None):
+    """One synchronous round of WCC's min-label propagation over the int32
+    edges (``src``, ``dst``): (labels after the round, (1,) int32 flag,
+    nonzero if any label fell). The kernel route writes into ``out`` and
+    ``changed`` where given (allocated otherwise); the plain route allocates
+    both."""
+    if wants_kernel(labels, use_kernel):
+        if out is None:
+            out = torch.empty_like(labels)
+        if changed is None:
+            changed = torch.empty(1, dtype=torch.int32, device=labels.device)
+        _wcc.wcc_round(src, dst, labels, out, changed)
+        return out, changed
+    return ref.wcc_round(src, dst, labels)
 
 
 def launch_counts() -> dict[str, int]:

@@ -2,7 +2,8 @@
 :mod:`repro_torch.kernels.ops` and the oracle every CUDA kernel is held
 against on the card. Same semantics as the Pallas functions they stand
 for (``repro/kernels/snapshot_resolve.py``, ``repro/kernels/segment_sum.py``,
-``repro/kernels/lru_scan.py``, ``repro/kernels/flash_attention.py``), and
+``repro/kernels/lru_scan.py``, ``repro/kernels/flash_attention.py``), WCC's
+round (``wcc_round``, which stands for no Pallas function), and
 the gradients of the last two (``lru_scan_bwd``, ``flash_attention_bwd``):
 the formulas of the CUDA backward kernels written out step by step, their
 oracle on the card. The CPU route differentiates ``lru_scan`` and
@@ -50,6 +51,26 @@ def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
     keep = (segment_ids >= 0) & (segment_ids < num_segments)
     out.index_add_(0, segment_ids[keep].long(), values[keep].float())
     return out
+
+
+def wcc_round(src: torch.Tensor, dst: torch.Tensor,
+              labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One round of WCC's min-label propagation over the edges (src, dst),
+    as ``graph.compute.wcc``'s plain route computes it: two scatter-mins
+    from the round's input labels (the reference's ``segment_min``, empty
+    segments at the dtype's maximum). Returns (labels after the round,
+    (1,) int32 flag: 1 if any label fell, else 0)."""
+    n = labels.shape[0]
+    high = torch.iinfo(labels.dtype).max
+    src_ids, dst_ids = src.long(), dst.long()
+    fwd = torch.full((n,), high, dtype=labels.dtype,
+                     device=labels.device).scatter_reduce_(
+        0, dst_ids, labels[src_ids], "amin", include_self=True)
+    bwd = torch.full((n,), high, dtype=labels.dtype,
+                     device=labels.device).scatter_reduce_(
+        0, src_ids, labels[dst_ids], "amin", include_self=True)
+    new = torch.minimum(labels, torch.minimum(fwd, bwd))
+    return new, (new != labels).any().to(torch.int32).reshape(1)
 
 
 def lru_scan(a: torch.Tensor, b: torch.Tensor,
