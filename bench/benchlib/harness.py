@@ -3,6 +3,13 @@
 ``run.py`` calls :func:`run_once` on the card; the CPU tests call it at a
 tiny size with ``device="cpu"`` (no trace), with faults planted in the
 program underneath, to see ``correct`` fail.
+
+A traffic mix names its driver, ``bench/benchlib/<driver>.py``, which is
+all a run needs of the cell's kind: ``run_cell(run, device, t_proc,
+trace_window)`` drives the set-up and the window and returns what the
+check needs once the program's state is freed, and ``numbers(run, state,
+config, control)`` returns the numbers compared against the
+configuration's ``limits``.
 """
 from __future__ import annotations
 
@@ -38,14 +45,7 @@ def run_once(manifest: dict, workload: str, seed: int, seconds: float, *,
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    ref_kw = cfg["reference_pagerank"]
-    if tr["driver"] == "serve":
-        numbers = check.serve_numbers(run, state["stream"], state["layout"],
-                                      ref_kw, control=control)
-    else:
-        numbers = check.timeline_numbers(state["results"], state["stream"],
-                                         state["layout"], ref_kw,
-                                         control=control)
+    numbers = driver.numbers(run, state, cfg, control)
     correct, checks = check.judge(numbers, cfg["limits"])
     metrics = {}
     for m in mf.metrics_for(manifest, workload, trace_window is not None):

@@ -1,12 +1,17 @@
 """The program under test, as the cells build and drive it: the sharded
 store from a configuration's layout, the mutation batches of the harness's
-stream, and the digests of the snapshots the program publishes. This is
-the only harness module besides the drivers that imports ``repro_torch``.
+stream, and the digests of the snapshots the program publishes; the
+model server of a model configuration, holding the weights the harness
+drew. This is the only harness module besides the drivers that imports
+``repro_torch``.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
+from benchlib import model_weights
 from benchlib.reference import view_digest_tensor
 from benchlib.stream import KroneckerStream, Layout
 
@@ -58,3 +63,65 @@ def digest_of(view) -> torch.Tensor:
     tensor, read later)."""
     return view_digest_tensor(view.offsets, view.src, view.dst,
                               view.out_degree, view.in_degree)
+
+
+# what the port's architecture must say for the plain reference
+# (``model_reference.py``) to be the same model: one full-attention
+# mixer kind, SwiGLU, RMSNorm, rotary positions, token embeddings,
+# untied, unscaled, with no extra norms or softcaps
+_DENSE_DECODER = {"pattern": ("attn",), "ffn": "swiglu", "norm": "rms",
+                  "rope": True, "pos_emb": "rope", "embed_mode": "tokens",
+                  "tie_embeddings": False, "scale_embeddings": False,
+                  "sandwich_norm": False, "qk_norm": False,
+                  "logit_softcap": 0.0, "attn_softcap": 0.0,
+                  "mlp_bias": False, "n_experts": 0}
+
+
+def model_config(config: dict):
+    """The port's ``ModelConfig`` of a model configuration: the
+    architecture ``config["arch"]`` at the configuration's sizes. Raises
+    where the port's architecture is not the decoder the configuration
+    and its reference describe."""
+    from repro_torch.configs import get_config
+
+    s = model_weights.shape_of(config)
+    cfg = dataclasses.replace(
+        get_config(config["arch"]), num_layers=s["layers"], d_model=s["d"],
+        n_heads=s["hq"], n_kv_heads=s["hkv"], head_dim=s["hd"],
+        d_ff=s["ff"], vocab_size=s["vocab"],
+        rope_theta=float(config["rope_theta"]))
+    want = dict(_DENSE_DECODER, qkv_bias=config["qkv_bias"],
+                tie_embeddings=config["tie_word_embeddings"])
+    got = {k: getattr(cfg, k) for k in want}
+    got["pattern"] = tuple(got["pattern"])
+    if got != want:
+        raise ValueError(f"{config['arch']} is not the configuration's "
+                         f"decoder: {got} != {want}")
+    return cfg
+
+
+def model_server(config: dict, seed: int, device):
+    """``launch.serve.Server`` over the port's model holding the weights
+    ``model_weights`` draws from ``seed``, each copied into the parameter
+    of its name, after ``nn.layers.strict_matmul()`` as
+    ``launch.serve.main`` calls it."""
+    from repro_torch.launch.serve import Server
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.nn.layers import strict_matmul
+
+    strict_matmul()
+    cfg = model_config(config)
+    model = Transformer(cfg, device)
+    named = dict(model.named_parameters())
+    specs = model_weights.specs(config)
+    if sorted(named) != sorted(name for name, _, _ in specs):
+        raise ValueError("the port's parameters are not the drawn ones: "
+                         f"{sorted(set(named) ^ {n for n, _, _ in specs})}")
+    with torch.no_grad():
+        for name, shape, kind in specs:
+            if tuple(named[name].shape) != shape:
+                raise ValueError(f"{name}: the port holds "
+                                 f"{tuple(named[name].shape)}, not {shape}")
+            named[name].copy_(model_weights.draw(config, seed, name, shape,
+                                                 kind, device))
+    return Server(cfg, model)

@@ -29,7 +29,7 @@ import time
 import numpy as np
 import torch
 
-from benchlib import loadgen, program
+from benchlib import check, loadgen, program
 from benchlib.stream import KroneckerStream
 
 LOADGEN = pathlib.Path(__file__).resolve().parent / "loadgen.py"
@@ -228,6 +228,12 @@ def run_cell(run, device, t_proc: float, trace_window=None) -> dict:
              "memory_peak_bytes": peak}
     del cell, writer
     return state
+
+
+def numbers(run, state: dict, config: dict, control: bool) -> dict:
+    """The serving cell's compared numbers (``check.serve_numbers``)."""
+    return check.serve_numbers(run, state["stream"], state["layout"],
+                               config["reference_pagerank"], control=control)
 
 
 def _sleep_until(t: float) -> None:

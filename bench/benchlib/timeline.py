@@ -15,7 +15,7 @@ import time
 
 import torch
 
-from benchlib import program
+from benchlib import check, program
 from benchlib.stream import KroneckerStream
 
 
@@ -94,3 +94,11 @@ def run_cell(run, device, t_proc: float, trace_window=None) -> dict:
     del sg
     return {"stream": stream, "layout": layout, "results": results,
             "memory_peak_bytes": peak}
+
+
+def numbers(run, state: dict, config: dict, control: bool) -> dict:
+    """The timeline cell's compared numbers (``check.timeline_numbers``)."""
+    return check.timeline_numbers(state["results"], state["stream"],
+                                  state["layout"],
+                                  config["reference_pagerank"],
+                                  control=control)

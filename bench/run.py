@@ -9,7 +9,8 @@ metric readers and roofline counts are the files ``BENCHMARK.json``
 names (see ``benchlib/manifest.py``). The run builds the cell's inputs
 from ``--seed``, sets up and warms every shape the cell uses, measures
 for ``--seconds``, then, with the program's state freed, checks what the
-timed path produced against the plain reference (``benchlib/check.py``).
+timed path produced against the plain reference (the driver's
+``numbers``, each held to its limit by ``benchlib/check.py``).
 The last line of standard output is one JSON object: ``correct``,
 ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end metrics, or
 with ``--trace 1`` its per-layer ones, read from a profiled sub-window),

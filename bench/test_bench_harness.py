@@ -19,7 +19,8 @@ import time
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 BENCH = pathlib.Path(__file__).resolve().parent
 ROOT = BENCH.parent
@@ -50,7 +51,10 @@ MANIFEST["end_to_end"] += [
         ("query_p50_ms", ["kron20.ingest", "kron20-hub.zipf"]),
         ("query_p99_ms", ["kron20.ingest"]),
         ("query_p95_ms", ["kron20-hub.zipf"]))]
-CELLS = [w["name"] for w in MANIFEST["workloads"]]
+# the graph cells (bench/test_bench_generate.py tests the model cell)
+CELLS = [w["name"] for w in MANIFEST["workloads"]
+         if mf.cell(MANIFEST, w["name"])[2]["driver"] in ("serve",
+                                                           "timeline")]
 
 
 def tiny(workload: str) -> tuple[dict, dict]:
@@ -66,7 +70,7 @@ def tiny(workload: str) -> tuple[dict, dict]:
         if tr["writer"]["mode"] == "open":
             tr["writer"]["period_s"] = 0.1
         tr["warm_s"] = 0.5
-        tr["capacity_epochs"] = 400
+        tr["capacity_epochs"] = 4000
         tr["queries"]["rate_per_s"] = 40
         tr["queries"]["wait_s"] = 20
     else:
@@ -124,6 +128,34 @@ def test_cell_is_correct_against_reference_on_cpu(workload):
     for m in mf.metrics_for(MANIFEST, workload, False):
         assert m["name"] in metrics, (m["name"], metrics)
         assert metrics[m["name"]]["value"] > 0
+
+
+# the graph cells' compared numbers and limits, as they stood before each
+# driver owned its check
+CHECKED = {
+    "timeline": {"snapshot_mismatch": 0, "pagerank_l1": 0.005,
+                 "wcc_mismatch": 0},
+    "serve": {"snapshot_mismatch": 0, "lost_epochs": 0, "unanswered": 0,
+              "unpublished_version": 0, "khop_mismatch": 0,
+              "reach_mismatch": 0, "topk_mismatch": 0,
+              "pagerank_topk_rel": 0.01}}
+
+
+@pytest.mark.parametrize("workload", CELLS)
+def test_driver_numbers_are_the_checks_of_before(workload):
+    run, _, correct, checks, state = run_tiny(workload)
+    cfg, tr = run.config, run.traffic
+    assert {k: c["limit"] for k, c in checks.items()} == \
+        CHECKED[tr["driver"]]
+    ref_kw = cfg["reference_pagerank"]
+    if tr["driver"] == "serve":
+        direct = check.serve_numbers(run, state["stream"], state["layout"],
+                                     ref_kw)
+    else:
+        direct = check.timeline_numbers(state["results"], state["stream"],
+                                        state["layout"], ref_kw)
+    assert {k: c["value"] for k, c in checks.items()} == direct
+    assert correct
 
 
 @pytest.mark.parametrize("workload", CELLS)
@@ -262,10 +294,10 @@ def test_manifest_names_units_and_files():
     for w in m["workloads"]:
         assert w["chips"] == 1 and len(w["why"]) <= 200
         _, cfg, tr = mf.cell(m, w["name"])
-        assert set(cfg["limits"]) >= {"snapshot_mismatch"}
+        assert cfg["limits"] and all(v >= 0 for v in cfg["limits"].values())
         for key in (c for c in m["configs"] if c["name"] == w["config"]) \
                 .__next__()["reduced"]:
-            assert NAME.match(key) and key in cfg["generator"]
+            assert NAME.match(key) and key in cfg.get("generator", cfg)
         reported = [x for x in m["end_to_end"] if "workloads" not in x
                     or w["name"] in x["workloads"]]
         assert len(reported) >= 2
