@@ -5,20 +5,48 @@ Every architecture is described by one :class:`ModelConfig`. A config is
 kinds), the FFN kind and the attention details; ``models/transformer.py``
 instantiates it. The dataclass, ``reduced`` and the registry functions are
 the reference's, field for field, so a config means the same model in both
-packages, and the registry holds the reference's ten architectures.
+packages, and the registry holds the reference's ten architectures. The
+port adds the fields of DeepSeek-V2's latent attention and DeepSeekMoE
+(``kv_lora_rank`` onwards), each defaulting to "absent", and one
+architecture of its own, ``deepseek-v2-lite``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Literal, Sequence
+import math
+from typing import Literal, Optional, Sequence
 
-MixerKind = Literal["attn", "swa", "local", "global", "rglru", "mlstm", "slstm"]
+MixerKind = Literal["attn", "swa", "local", "global", "rglru", "mlstm",
+                    "slstm", "mla"]
 FFNKind = Literal["swiglu", "geglu", "gelu_mlp", "moe", "none"]
 NormKind = Literal["rms", "ln"]
 EmbedMode = Literal["tokens", "frames"]
 
 ATTN_KINDS = ("attn", "swa", "local", "global")
 RECURRENT_KINDS = ("rglru", "mlstm", "slstm")
+# the mixers followed by a feed-forward
+FFN_MIXERS = ATTN_KINDS + ("rglru", "mla")
+
+
+@dataclasses.dataclass(frozen=True)
+class YaRN:
+    """YaRN's rotary scaling (DeepSeek-V2's ``rope_scaling`` with
+    ``type`` "yarn"): the frequencies of the slow dimensions divided by
+    ``factor``, blended into the fast ones over the correction range that
+    ``beta_fast`` and ``beta_slow`` rotations at
+    ``original_max_position`` give; attention scores scaled by
+    ``mscale(factor, mscale_all_dim)^2`` and the rotary table by
+    ``mscale(factor, mscale) / mscale(factor, mscale_all_dim)``."""
+    factor: float
+    original_max_position: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +79,7 @@ class ModelConfig:
     n_experts: int = 0
     top_k: int = 2
     d_ff_expert: int = 0
-    moe_impl: Literal["dense", "dropping"] = "dense"
+    moe_impl: Literal["dense", "dropping", "dropless"] = "dense"
     capacity_factor: float = 1.25
     expert_sharding: Literal["tensor", "expert"] = "tensor"
     # recurrent blocks
@@ -83,6 +111,21 @@ class ModelConfig:
     remat: str = "full"
     # loss vocab chunking (tokens per chunk in the chunked CE)
     loss_chunk: int = 2048
+    # multi-head latent attention (mixer kind "mla", DeepSeek-V2): keys and
+    # values from a normed latent of kv_lora_rank, queries and keys of
+    # qk_nope_head_dim + qk_rope_head_dim (the rotated part one key head
+    # shared by all), values of v_head_dim; 0 where absent
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    rope_scaling: Optional[YaRN] = None
+    # DeepSeekMoE: n_shared_experts experts of d_ff_expert as one SwiGLU
+    # that every token takes; the first first_k_dense layers a SwiGLU of
+    # d_ff; routing weights renormalised over the top-k (norm_topk_prob)
+    n_shared_experts: int = 0
+    first_k_dense: int = 0
+    norm_topk_prob: bool = True
 
     @property
     def resolved_head_dim(self) -> int:
@@ -112,16 +155,33 @@ class ModelConfig:
         if self.embed_mode == "tokens":
             total += v * d
         total += d * v  # lm head
-        for kind in list(self.pattern) * self.num_units + list(self.tail_pattern):
-            total += self._block_params(kind)
+        for layer, kind in enumerate(self.layer_kinds()):
+            total += self._block_params(kind, layer)
         total += d  # final norm
         return total
 
-    def _block_params(self, kind: str) -> int:
+    def layer_kinds(self) -> list:
+        """The mixer kind of each layer, in order."""
+        return list(self.pattern) * self.num_units + list(self.tail_pattern)
+
+    def ffn_kind(self, layer: int) -> str:
+        """The feed-forward of ``layer``: ``cfg.ffn``, or "swiglu" for the
+        first ``first_k_dense`` layers of an MoE model."""
+        if self.ffn == "moe" and layer < self.first_k_dense:
+            return "swiglu"
+        return self.ffn
+
+    def _block_params(self, kind: str, layer: Optional[int] = None) -> int:
         d = self.d_model
         hd = self.resolved_head_dim
         n = 0
-        if kind in ATTN_KINDS:
+        if kind == "mla":
+            h, r = self.n_heads, self.kv_lora_rank
+            n += d * h * (self.qk_nope_head_dim + self.qk_rope_head_dim)
+            n += d * (r + self.qk_rope_head_dim) + r
+            n += r * h * (self.qk_nope_head_dim + self.v_head_dim)
+            n += h * self.v_head_dim * d + d
+        elif kind in ATTN_KINDS:
             n += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
             if self.qkv_bias:
                 n += self.q_dim + 2 * self.kv_dim
@@ -149,29 +209,31 @@ class ModelConfig:
             dff_s = int(self.slstm_proj_factor * d)
             n += 2 * d * dff_s + dff_s * d
         # FFN
-        if kind in ATTN_KINDS or kind == "rglru":
-            if self.ffn in ("swiglu", "geglu"):
+        ffn = self.ffn if layer is None else self.ffn_kind(layer)
+        if kind in FFN_MIXERS:
+            if ffn in ("swiglu", "geglu"):
                 n += 3 * d * self.d_ff + d
-            elif self.ffn == "gelu_mlp":
+            elif ffn == "gelu_mlp":
                 n += 2 * d * self.d_ff + d
                 if self.mlp_bias:
                     n += self.d_ff + d
-            elif self.ffn == "moe":
+            elif ffn == "moe":
                 ffe = self.d_ff_expert or self.d_ff
                 n += d * self.n_experts + self.n_experts * 3 * d * ffe + d
+                n += self.n_shared_experts * 3 * d * ffe
         return n
 
     def active_param_count(self) -> int:
-        """Active params per token (MoE counts top_k experts only)."""
+        """Active params per token (MoE counts top_k experts only; shared
+        experts and dense layers count whole)."""
         if self.ffn != "moe":
             return self.param_count()
         ffe = self.d_ff_expert or self.d_ff
         per_layer_moe = self.n_experts * 3 * self.d_model * ffe
         active_moe = self.top_k * 3 * self.d_model * ffe
         n_moe_layers = sum(
-            1 for k in (list(self.pattern) * self.num_units + list(self.tail_pattern))
-            if k in ATTN_KINDS
-        )
+            1 for layer, k in enumerate(self.layer_kinds())
+            if k in FFN_MIXERS and self.ffn_kind(layer) == "moe")
         return self.param_count() - n_moe_layers * (per_layer_moe - active_moe)
 
 
@@ -215,9 +277,9 @@ def all_configs() -> dict[str, ModelConfig]:
 def _load_all() -> None:
     # import for registration side effects
     from repro_torch.configs import (  # noqa: F401
-        gemma3_27b, internvl2_76b, mixtral_8x22b, musicgen_medium,
-        phi3_5_moe, qwen1_5_110b, qwen2_5_14b, recurrentgemma_2b,
-        starcoder2_7b, xlstm_1_3b,
+        deepseek_v2_lite, gemma3_27b, internvl2_76b, mixtral_8x22b,
+        musicgen_medium, phi3_5_moe, qwen1_5_110b, qwen2_5_14b,
+        recurrentgemma_2b, starcoder2_7b, xlstm_1_3b,
     )
 
 

@@ -8,9 +8,13 @@ parameters on a leading axis and scans), then a tail of
 mixer kind of the reference: the attention kinds and ``rglru`` with
 ``mlp`` or MoE (``nn/moe.py``) feed-forwards, optionally with post-block
 ("sandwich") norms, and the xLSTM's ``mlstm`` and ``slstm``, which carry
-their own projections and have no feed-forward. Inputs are (B, S) token
-ids or, with ``embed_mode="frames"``, (B, S, D) frames (precomputed
-embeddings; the model then has no ``embed`` table).
+their own projections and have no feed-forward; and one of its own,
+DeepSeek-V2's latent attention ``mla`` (``nn/mla.py``), whose decode
+cache is the latent beside the attention kinds' keys and values. A
+block's feed-forward is ``cfg.ffn_kind(layer)``: an MoE model's first
+``cfg.first_k_dense`` layers take a SwiGLU of ``d_ff``. Inputs are (B, S)
+token ids or, with ``embed_mode="frames"``, (B, S, D) frames
+(precomputed embeddings; the model then has no ``embed`` table).
 
 A model is built for serving (bf16 frozen weights on a card, but for what
 the reference reads in float32: norm scales, biases, MoE routers and the
@@ -35,14 +39,18 @@ on one card the port's ``launch.sharding.constrain`` returns its input.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.configs.base import ATTN_KINDS, ModelConfig
+from repro_torch.configs.base import ATTN_KINDS, FFN_MIXERS, ModelConfig
 from repro_torch.nn import attention as attn
+from repro_torch.nn import mla as mla_mod
 from repro_torch.nn import moe as moe_mod
 from repro_torch.nn import recurrent as rec
 from repro_torch.nn.layers import (MLP, Norm, apply_norm,
@@ -53,7 +61,37 @@ from repro_torch.nn.layers import (MLP, Norm, apply_norm,
 
 
 def _has_ffn(cfg: ModelConfig, kind: str) -> bool:
-    return cfg.ffn != "none" and (kind in ATTN_KINDS or kind == "rglru")
+    return cfg.ffn != "none" and kind in FFN_MIXERS
+
+
+# a dense feed-forward goes over a call's tokens in groups of this many
+# when there are more, as the MoE layers do (the hidden (T, d_ff)
+# products of one group only are live)
+FFN_TOKENS = 131_072
+
+
+def _dense_config(cfg: ModelConfig) -> ModelConfig:
+    """The config a dense first layer of an MoE model runs its SwiGLU
+    with; any other model's own."""
+    return _swiglu_config(cfg) if cfg.ffn == "moe" else cfg
+
+
+def _dense_ffn(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The dense feed-forward of (B, S, D), over the tokens in groups of
+    at most ``FFN_TOKENS``."""
+    dcfg = _dense_config(cfg)
+    if h.shape[0] * h.shape[1] <= FFN_TOKENS:
+        return mlp(p, h, dcfg)
+    flat = h.reshape(-1, h.shape[-1])
+    return torch.cat([mlp(p, flat[lo:lo + FFN_TOKENS], dcfg)
+                      for lo in range(0, flat.shape[0], FFN_TOKENS)]
+                     ).view(h.shape)
+
+
+@functools.lru_cache(maxsize=16)
+def _swiglu_config(cfg: ModelConfig) -> ModelConfig:
+    # made once per config: a decode step asks in every dense layer
+    return dataclasses.replace(cfg, ffn="swiglu")
 
 
 # ------------------------------------------------------------------ modules
@@ -63,12 +101,14 @@ class Block(nn.Module):
     ffn's ``post2`` before their residual adds."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device,
-                 trainable: bool = False):
+                 trainable: bool = False, layer: int = 0):
         super().__init__()
         t = trainable
         self.norm1 = Norm(cfg.d_model, cfg.norm, device, t)
         if kind in ATTN_KINDS:
             self.mixer = attn.Attention(cfg, device, t)
+        elif kind == "mla":
+            self.mixer = mla_mod.MLA(cfg, device, t)
         elif kind == "rglru":
             self.mixer = rec.RGLRU(cfg, device, t)
         elif kind == "mlstm":
@@ -81,8 +121,9 @@ class Block(nn.Module):
             self.post1 = Norm(cfg.d_model, cfg.norm, device, t)
         if _has_ffn(cfg, kind):
             self.norm2 = Norm(cfg.d_model, cfg.norm, device, t)
-            self.ffn = (moe_mod.MoE(cfg, device, t) if cfg.ffn == "moe"
-                        else MLP(cfg, device, t))
+            self.ffn = (moe_mod.MoE(cfg, device, t, layer)
+                        if cfg.ffn_kind(layer) == "moe"
+                        else MLP(_dense_config(cfg), device, t))
             if cfg.sandwich_norm:
                 self.post2 = Norm(cfg.d_model, cfg.norm, device, t)
 
@@ -105,12 +146,14 @@ class Transformer(nn.Module):
         self.lm_head = param((cfg.d_model, cfg.vocab_size), wd, device,
                              trainable=t)
         self.final_norm = Norm(cfg.d_model, cfg.norm, device, t)
+        n = len(cfg.pattern)
         self.units = nn.ModuleList(
-            nn.ModuleDict({f"b{i}": Block(cfg, kind, device, t)
+            nn.ModuleDict({f"b{i}": Block(cfg, kind, device, t, u * n + i)
                            for i, kind in enumerate(cfg.pattern)})
-            for _ in range(cfg.num_units))
+            for u in range(cfg.num_units))
         for i, kind in enumerate(cfg.tail_pattern):
-            self.add_module(f"tail{i}", Block(cfg, kind, device, t))
+            self.add_module(f"tail{i}", Block(cfg, kind, device, t,
+                                              cfg.num_units * n + i))
 
     @property
     def device(self) -> torch.device:
@@ -126,7 +169,8 @@ class Transformer(nn.Module):
 
 
 # weights the reference initialises from N(0, 0.02); the rest are constants
-_RANDOM = {"embed", "lm_head", "wq", "wk", "wv", "wo", "in_x", "in_gate",
+_RANDOM = {"embed", "lm_head", "wq", "wk", "wv", "wo", "wkva", "wkvb",
+           "in_x", "in_gate",
            "w", "w_ig", "w_rg", "out", "w1", "w2", "w3", "router", "up",
            "w_if", "down", "w_gates", "r_gates", "up1", "up2"}
 
@@ -157,10 +201,10 @@ def _ffn_residual(p: Block, x, cfg: ModelConfig, kind: str):
     aux = None
     if _has_ffn(cfg, kind):
         h = apply_norm(p.norm2, x, cfg.norm)
-        if cfg.ffn == "moe":
+        if isinstance(p.ffn, moe_mod.MoE):
             h, aux = moe_mod.moe_forward(p.ffn, h, cfg)
         else:
-            h = mlp(p.ffn, h, cfg)
+            h = _dense_ffn(p.ffn, h, cfg)
         if cfg.sandwich_norm:
             h = apply_norm(p.post2, h, cfg.norm)
         x = x + h
@@ -183,7 +227,11 @@ def apply_block(p: Block, x, cfg: ModelConfig, kind: str, positions,
     ``_apply_block`` and ``_prefill_block`` in one."""
     h = apply_norm(p.norm1, x, cfg.norm)
     cache = None
-    if kind in ATTN_KINDS:
+    if kind == "mla":
+        out = mla_mod.mla_forward(p.mixer, h, cfg, positions, capacity,
+                                  use_kernel)
+        h, cache = out if capacity is not None else (out, None)
+    elif kind in ATTN_KINDS:
         if capacity is None:
             h = attn.attn_forward(p.mixer, h, cfg, kind, positions,
                                   use_kernel=use_kernel)
@@ -304,6 +352,8 @@ def logits_fn(model: Transformer, cfg: ModelConfig, hidden):
 def _block_cache(cfg: ModelConfig, kind: str, batch, capacity, device):
     if kind in ATTN_KINDS:
         return attn.init_kv_cache(cfg, batch, capacity, device)
+    if kind == "mla":
+        return mla_mod.init_latent_cache(cfg, batch, capacity, device)
     if kind == "rglru":
         return rec.init_rglru_cache(cfg, batch, device)
     if kind == "mlstm":
@@ -363,6 +413,8 @@ def _decode_block(p: Block, c, x, cfg: ModelConfig, kind: str, pos: int):
     h = apply_norm(p.norm1, x, cfg.norm)
     if kind in ATTN_KINDS:
         h, c = attn.attn_decode(p.mixer, h, cfg, kind, c, pos)
+    elif kind == "mla":
+        h, c = mla_mod.mla_decode(p.mixer, h, cfg, c, pos)
     else:
         decode = {"rglru": rec.rglru_decode, "mlstm": rec.mlstm_decode,
                   "slstm": rec.slstm_decode}[kind]

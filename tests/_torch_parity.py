@@ -1,6 +1,7 @@
 """Shared helpers of the PyTorch-port parity tests (``test_torch_*.py``):
 the port and the JAX reference are fed the same NumPy inputs and their
 outputs compared as host arrays."""
+import dataclasses
 import importlib.util
 import pathlib
 
@@ -124,3 +125,27 @@ def port_query(q):
     """The port's query dataclass equal to a reference query."""
     from repro_torch.graph import query as tq
     return getattr(tq, type(q).__name__)(**q.__dict__)
+
+
+# the port's architectures that the reference does not have
+PORT_ONLY_ARCHS = ("deepseek-v2-lite",)
+
+
+def reference_archs() -> list[str]:
+    """The port's registry less its own architectures: the reference's
+    ten, without importing the reference."""
+    from repro_torch.configs import all_configs
+
+    return sorted(set(all_configs()) - set(PORT_ONLY_ARCHS))
+
+
+def assert_config_same(cfg, ref_cfg) -> None:
+    """The port's config is the reference's: every field the reference's
+    has is equal, and every field only the port's has (latent attention
+    and DeepSeekMoE) is at its default."""
+    got, want = dataclasses.asdict(cfg), dataclasses.asdict(ref_cfg)
+    assert {k: got.get(k) for k in want} == want
+    defaults = {f.name: f.default for f in dataclasses.fields(cfg)}
+    assert {k: v for k, v in got.items() if k not in want} == \
+        {k: defaults[k] for k in got if k not in want}
+

@@ -712,3 +712,21 @@ def test_xlstm_card_holds_to_the_cpu_result(cuda_device):
             for u in v] for k, v in got[1].items()})
         errs = cs.prefill_errors(torch, cfg, got, want)
         assert max(errs.values()) <= 5e-2, (impl, errs)
+
+
+def test_mla_decode_scores_are_float32_on_card(cuda_device):
+    """The absorbed decode's scores of a bf16 latent cache, read through a
+    slice of it as the decode reads it, come out of one float32-result
+    GEMM: float32, and within float32 accumulation of the float64
+    product of the same bf16 operands."""
+    from repro_torch.nn import mla
+
+    g = torch.Generator().manual_seed(11)
+    lat = (torch.randn(3, 64, 576, generator=g) * 4).to(torch.bfloat16)
+    q = (torch.randn(3, 16, 576, generator=g) * 4).to(torch.bfloat16)
+    got = mla._scores(q.to(cuda_device), lat.to(cuda_device)[:, :41])
+    want = torch.bmm(q.double(), lat[:, :41].double().transpose(1, 2))
+    assert got.dtype == torch.float32
+    rel = (got.cpu().double() - want).abs().max() / want.abs().max()
+    assert float(rel) < 1e-5
+

@@ -26,9 +26,12 @@ from repro_torch.analysis import hlo, report, roofline  # noqa: E402
 from repro_torch.configs import SHAPES, all_configs, get_config  # noqa: E402
 from repro_torch.configs import reduced  # noqa: E402
 from repro_torch.launch import dryrun, specs  # noqa: E402
+from _torch_parity import reference_archs  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-ARCHS = sorted(all_configs())
+# the reference's ten (the port's own architectures have no reference
+# specs to hold them to)
+ARCHS = reference_archs()
 
 _SPECS_SCRIPT = r"""
 import json
@@ -232,12 +235,14 @@ def test_counted_kernels_use_the_bound_formulas():
 
 def test_counting_allocates_nothing():
     """A full-size cell (qwen1.5-110b's 32k prefill: 207 GiB of weights
-    and 883 GiB at its peak, counted) runs on meta tensors: the host's
-    resident memory grows by far less than one layer's weights."""
+    and 484 GiB at its peak, counted, its SwiGLU over groups of
+    ``FFN_TOKENS`` tokens) runs on meta tensors: the host's resident
+    memory grows by far less than one layer's weights."""
     before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
     c = dryrun.count_step(get_config("qwen1.5-110b"), "prefill", 32, 32768)
     grown = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss - before
-    assert c["argument_bytes"] > 200 * 2**30 and c["peak_bytes"] > 2**39
+    assert c["argument_bytes"] > 200 * 2**30 \
+        and c["peak_bytes"] > 450 * 2**30
     assert grown < 1 << 20          # KiB: under 1 GiB
 
 

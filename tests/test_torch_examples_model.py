@@ -20,7 +20,8 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 from jax.sharding import AxisType  # noqa: E402
 
-from _torch_parity import load_chip_smoke, one_torch_thread  # noqa: E402,F401
+from _torch_parity import (assert_config_same, load_chip_smoke,  # noqa: E402,F401,E501
+                           one_torch_thread)
 
 from repro.configs import all_configs as ref_configs  # noqa: E402
 from repro.configs import reduced as ref_reduced  # noqa: E402
@@ -75,7 +76,7 @@ def test_quickstart_serves_the_reference_trained_weights(tmp_path):
     rcfg = ref_reduced(ref_configs()["qwen2.5-14b"], num_layers=2,
                        d_model=128, vocab_size=128, loss_chunk=512)
     cfg = demo.config()
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(rcfg)
+    assert_config_same(cfg, rcfg)
     _, state = jtrain.run(rcfg, steps=20, batch=q.batch, seq=q.seq,
                           ckpt_dir=str(tmp_path), ckpt_every=q.ckpt_every,
                           log_every=q.log_every)
@@ -98,7 +99,7 @@ def test_elastic_restart_resumes_from_the_reference_checkpoint(tmp_path):
     demo = load_chip_smoke().load_demo("torch_elastic_restart")
     e = dataclasses.replace(demo.Elastic(), steps=3, ckpt_every=2)
     rcfg = ref_reduced(ref_configs()["qwen2.5-14b"], num_layers=2)
-    assert dataclasses.asdict(demo.config()) == dataclasses.asdict(rcfg)
+    assert_config_same(demo.config(), rcfg)
     _, state = jtrain.run(rcfg, steps=e.steps, batch=e.batch, seq=e.seq,
                           ckpt_dir=str(tmp_path), ckpt_every=e.ckpt_every,
                           compress=True, log_every=e.log_every)

@@ -35,7 +35,7 @@ from repro.launch import serve as jserve  # noqa: E402
 from repro.launch import steps as jsteps  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 from repro.nn import layers as jlayers  # noqa: E402
-from _torch_parity import load_chip_smoke  # noqa: E402
+from _torch_parity import assert_config_same, load_chip_smoke  # noqa: E402,E501
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.launch import serve, steps  # noqa: E402
 from repro_torch.models import params as mp  # noqa: E402
@@ -128,10 +128,9 @@ def _caches_close(got, want, cfg, what):
                                           "phi3.5-moe-42b-a6.6b",
                                           "xlstm-1.3b"))
 def test_config_equals_reference(arch):
-    assert dataclasses.asdict(get_config(arch)) \
-        == dataclasses.asdict(ref_get_config(arch))
+    assert_config_same(get_config(arch), ref_get_config(arch))
     jcfg, cfg = _cfgs(arch)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert_config_same(cfg, jcfg)
 
 
 def test_reduced_shapes():
