@@ -302,7 +302,17 @@ and in float32 (2e-4, the ``simt`` route: the window edge and the tile
 skipping at the serving shape), without the window in bf16 (1e-2), at
 (1, 8, 2, 1024, 128) float32 (2e-4), and in bf16 at (1, 8, 2, 1000, 128)
 with window 300 (ragged S, a window off the tile grid, GQA 4) and at
-(2, 4, 4, 4097, 64) causal (1e-2 each).
+(2, 4, 4, 4097, 64) causal (1e-2 each); ``decode_attention`` (a decode
+step's attention, ``check_decode_attention``) relative to its plain
+version's largest output (``DECODE_RTOL``: 3e-2 bf16, 2e-4 float32) at
+the main path's decode (48, 40, 8, 2176, 128) at positions 0, 2047 and
+2175, at each attention configuration's (G, hd, window) before, at and
+past the window's edge, at a batch of 2 over 32,768 positions split as
+chosen, unsplit and in 7, and on float32 caches; bit-equal on a second
+call; with two planted faults (the mask one position past ``pos``, the
+last split left out of the combine) that must exceed the limit. Every
+model served (phases 5, 9, 10, 14d) must launch ``decode_attention`` once
+per attention layer and decode step; 9 and 14d log it.
 
 The lines before the last are the checks off the main path's shapes as
 JSON (``{"checks": [...]}``), the card, and the kernel table as JSON (one
@@ -346,6 +356,30 @@ MODEL_REQUESTS, MODEL_PROMPT, MODEL_GEN = 8, 4096, 32
 LRU_SHAPE = (MODEL_REQUESTS, MODEL_PROMPT, 2560)
 FLASH_SHAPE = (MODEL_REQUESTS, 10, 1, MODEL_PROMPT, 256)   # B, Hq, Hkv, S, hd
 FLASH_WINDOW = 2048
+# decode_attention against its plain version (relative to the output's
+# largest magnitude), tests/test_kernels.py's attention tolerances: bf16
+# (P rounded once, the output rounded) and float32
+DECODE_RTOL = {"bfloat16": 3e-2, "float32": 2e-4}
+# the main path's decode: qwen2.5-14b.batch2k (B, Hq, Hkv, capacity, hd)
+DECODE_SHAPE = (48, 40, 8, 2176, 128)
+# each attention configuration's (B, Hq, Hkv, capacity, hd, window), a
+# few sequences a card: G 1 (musicgen), 2 with the local window (gemma3),
+# 4 (phi3.5-moe), 6 with the window (mixtral), 8 (qwen1.5, internvl2), 9
+# (starcoder2), 10 at hd 256 with the window (recurrentgemma); G 20 and
+# 32 (two 16-row groups); hd 16 and 32
+DECODE_FAMILY_SHAPES = ((2, 24, 24, 1024, 64, None),
+                        (2, 32, 16, 2048, 128, 1024),
+                        (2, 32, 8, 1024, 128, None),
+                        (1, 48, 8, 8192, 128, 4096),
+                        (2, 64, 8, 1024, 128, None),
+                        (2, 36, 4, 1024, 128, None),
+                        (2, 10, 1, 4096, 256, 2048),
+                        (1, 20, 1, 300, 128, None),
+                        (1, 32, 1, 512, 64, None),
+                        (1, 4, 2, 200, 16, None),
+                        (1, 8, 2, 300, 32, 100))
+# a long cache at a small batch: the splits carry the card
+DECODE_LONG_SHAPE = (2, 40, 8, 32768, 128)
 # kernel route vs plain route on the card, relative to each tensor's
 # largest magnitude: one layer's mixer on the same input (bf16 output; the
 # state in float32), see check_layers_against_plain; the whole prefill,
@@ -1171,6 +1205,196 @@ def flash_attention_case(torch, g, shape, dtype, window, tol) -> dict:
         else FP32_OPS_PER_S, kernel_route=which, dev_ms=dev, host=host)
 
 
+def decode_positions(cap: int, window) -> tuple:
+    """Positions a decode check runs at: the first and the last, and with
+    a window the positions before, at and past its edge."""
+    if window is None:
+        return (0, cap // 2, cap - 1)
+    return tuple(sorted({0, window - 2, window - 1, window,
+                         min(window + 37, cap - 1), cap - 1}))
+
+
+def decode_inputs(torch, g, shape, dtype):
+    B, Hq, Hkv, cap, hd = shape
+    q = torch.randn((B, Hq, hd), generator=g, device="cuda").to(dtype)
+    k = torch.randn((B, Hkv, cap, hd), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, Hkv, cap, hd), generator=g, device="cuda").to(dtype)
+    return q, k, v
+
+
+def decode_rel_err(got, want) -> float:
+    """Largest gap over the plain output's largest magnitude."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def decode_attention_case(torch, q, k, v, pos: int, window,
+                          splits=None) -> float:
+    """One ``decode_attention`` call against the plain version: its
+    relative error (:func:`decode_rel_err`), held to DECODE_RTOL of its
+    dtype; the call must launch the kernel once."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+
+    before = da.decode_attention.launches
+    got = da.decode_attention(q, k, v, pos, window=window, splits=splits)
+    want = ref.decode_attention(q, k, v, pos, window=window)
+    torch.cuda.synchronize()
+    tol = DECODE_RTOL[str(q.dtype).split(".")[-1]]
+    err = decode_rel_err(got, want)
+    check(da.decode_attention.launches == before + 1
+          and got.dtype == q.dtype and bool(torch.isfinite(got).all()),
+          f"decode_attention {tuple(k.shape)} pos {pos}: no launch, dtype "
+          "or non-finite")
+    check(err <= tol, f"decode_attention {tuple(q.shape)} over "
+                      f"{tuple(k.shape)} {q.dtype} pos {pos} window {window} "
+                      f"splits {splits}: relative error {err:.3e} over {tol}")
+    return err
+
+
+def decode_split_left_out(torch, q, k, v, pos: int, splits: int) -> float:
+    """The planted fault of the combine: the splits' partials written by
+    the raw C entry, the last split's weight set to 0 (max -inf, sum 0),
+    then the combine launch alone; its relative error to the plain
+    version."""
+    from repro_torch.kernels import _lib, ref
+    from repro_torch.kernels import decode_attention as da
+
+    B, Hq, hd = q.shape
+    Hkv, cap = k.shape[1], k.shape[2]
+    rows = da.ROWS[q.dtype]
+    part = torch.empty(da.partial_floats(q.dtype, B, Hq, Hkv, hd, splits),
+                       dtype=torch.float32, device="cuda")
+    out = torch.empty_like(q)
+    lib = _lib.load()
+    dtype = da._DTYPES[q.dtype]
+    stream = _lib.stream_of(q)
+    _lib.check(lib.rt_decode_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None, part.data_ptr(),
+        dtype, B, Hq, Hkv, cap, hd, pos, 0, splits, hd ** -0.5, stream),
+        "decode_attention (partials)")
+    last = part.view(-1, splits, rows, hd + 2)[:, -1]
+    last[..., hd] = float("-inf")
+    last[..., hd + 1] = 0.0
+    _lib.check(lib.rt_decode_attention_combine(
+        part.data_ptr(), out.data_ptr(), dtype, B, Hq, Hkv, hd, splits,
+        stream), "decode_attention (combine)")
+    want = ref.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    return decode_rel_err(out, want)
+
+
+def check_decode_attention(torch) -> tuple[dict, list[dict]]:
+    """decode_attention against its plain version
+    (:func:`decode_attention_case`): at the main path's shape
+    (DECODE_SHAPE, bf16) at positions 0, 2047 and 2175; each attention
+    configuration's (G, hd, window) (DECODE_FAMILY_SHAPES) at
+    :func:`decode_positions`; a batch of 2 over a 32,768-position cache
+    (DECODE_LONG_SHAPE), whose splits carry the card, at its chosen split
+    count, at one split and at 7; float32 caches. Two calls must be
+    bit-equal. Two planted faults must exceed the tolerance: the mask one
+    position past ``pos`` (the kernel at pos + 1 against the plain
+    version at pos, early in the cache, where one position weighs), and
+    the last split left out of the combine (:func:`decode_split_left_out`).
+    Returns the row at the main path's shape at pos 2175, timed beside the
+    plain version and scaled_dot_product_attention (GQA, the same mask),
+    and a row of the long cache."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 30)
+    errs: dict = {}
+    planted: dict = {}
+    bf16 = torch.bfloat16
+    q, k, v = decode_inputs(torch, g, DECODE_SHAPE, bf16)
+    for pos in (0, 2047, 2175):
+        errs[f"{DECODE_SHAPE} bf16 pos {pos}"] = decode_attention_case(
+            torch, q, k, v, pos, None)
+    a = da.decode_attention(q, k, v, 2175)
+    b = da.decode_attention(q, k, v, 2175)
+    check(bool(torch.equal(a, b)), "decode_attention: two calls differ")
+    planted["mask one past pos"] = decode_rel_err(
+        da.decode_attention(q, k, v, 4), ref.decode_attention(q, k, v, 3))
+    del a, b
+    main = decode_row(torch, F, q, k, v, 2175, None)
+    del q, k, v
+    for B, Hq, Hkv, cap, hd, window in DECODE_FAMILY_SHAPES:
+        q, k, v = decode_inputs(torch, g, (B, Hq, Hkv, cap, hd), bf16)
+        for pos in decode_positions(cap, window):
+            errs[f"{(B, Hq, Hkv, cap, hd)} bf16 window {window} pos {pos}"] \
+                = decode_attention_case(torch, q, k, v, pos, window)
+    q, k, v = decode_inputs(torch, g, DECODE_LONG_SHAPE, bf16)
+    B, Hq, Hkv, cap, hd = DECODE_LONG_SHAPE
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chosen = da.split_count(bf16, B, Hq, Hkv, hd, cap, sms)
+    for splits in (None, 1, 7):
+        errs[f"{DECODE_LONG_SHAPE} bf16 pos {cap - 1} splits "
+             f"{splits or chosen}"] = decode_attention_case(
+            torch, q, k, v, cap - 1, None, splits)
+    planted["last split left out"] = decode_split_left_out(
+        torch, q, k, v, cap - 1, 4)
+    long_row = decode_row(torch, F, q, k, v, cap - 1, None)
+    del q, k, v
+    for shape, window, pos in (((2, 8, 2, 1000, 128), None, 999),
+                               ((1, 10, 1, 4096, 256), 2048, 3000),
+                               ((1, 4, 2, 5000, 16), 300, 4999),
+                               ((2, 40, 8, 2176, 128), None, 2175)):
+        q, k, v = decode_inputs(torch, g, shape, torch.float32)
+        errs[f"{shape} float32 window {window} pos {pos}"] = \
+            decode_attention_case(torch, q, k, v, pos, window)
+    del q, k, v
+    for name, err in planted.items():
+        check(err > DECODE_RTOL["bfloat16"],
+              f"decode_attention planted fault {name!r} not caught: "
+              f"{err:.3e}")
+    main["errors"] = errs
+    main["planted"] = planted
+    return main, [long_row]
+
+
+def decode_row(torch, F, q, k, v, pos: int, window) -> dict:
+    """The kernels-table row of one ``decode_attention`` shape: the
+    kernel's CUDA-event and device time (the attention kernel and, with
+    splits, the combine), host time, the plain version's and SDPA's."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+
+    B, Hq, hd = q.shape
+    Hkv, cap = k.shape[1], k.shape[2]
+
+    def kernel():
+        return da.decode_attention(q, k, v, pos, window=window)
+    start, length = da.attended(pos, window)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    splits = da.split_count(q.dtype, B, Hq, Hkv, hd, length, sms)
+    names = ("decode_attention_kernel_mma",) + (
+        ("decode_attention_kernel_combine",) if splits > 1 else ())
+    ms = cuda_ms(torch, kernel, reps=20)
+    dev = device_ms(torch, kernel, names, reps=10, per_call=len(names))
+    host = host_ms(torch, kernel, reps=50)
+    plain = cuda_ms(torch, lambda: ref.decode_attention(
+        q, k, v, pos, window=window), reps=5, warmup=1)
+    idx = torch.arange(cap, device="cuda")
+    mask = ((idx >= start) & (idx <= pos))[None, :]
+    q4 = q[:, :, None]
+    library = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        q4, k, v, attn_mask=mask, enable_gqa=True), reps=10)
+    work = da.work(B, Hq, Hkv, length, hd, q.element_size())
+    return kernel_row(
+        "decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+        "none (the reference's decode attention is an einsum, "
+        "src/repro/nn/attention.py:193-203)", max_abs_err=None, ms=ms,
+        plain_ms=plain, nbytes=work["hbm_bytes"], ops=work["flops"],
+        library_ms=library,
+        shape=f"B={B},Hq={Hq},Hkv={Hkv},capacity={cap},hd={hd},pos={pos},"
+              f"{str(q.dtype).split('.')[-1]},window={window}",
+        ops_per_s=BF16_TC_OPS_PER_S, kernel_route="mma", dev_ms=dev,
+        host=host) | {"splits": splits}
+
+
 # --------------------------------------------------------------- phase 3
 def serve_stream(torch, device: str, n: int, epochs: int, adds: int, *,
                  on_last_window=None) -> dict:
@@ -1353,8 +1577,9 @@ def serve_model(torch, cfg, device: str = "cuda",
     through :func:`generate_frames` (``gen`` decode steps on seeded
     frames). The kernels' launches are counted around it: each RG-LRU
     layer must have launched ``lru_scan`` once and each attention layer
-    ``flash_attention`` once, on its tensor-core (``wgmma``) route; the
-    attention calls are also tallied by shape (:class:`attention_shapes`)."""
+    ``flash_attention`` once, on its tensor-core (``wgmma``) route, and
+    ``decode_attention`` once a decode step; the attention calls are also
+    tallied by shape (:class:`attention_shapes`)."""
     import numpy as np
 
     from repro_torch.configs import ATTN_KINDS
@@ -1397,7 +1622,8 @@ def serve_model(torch, cfg, device: str = "cuda",
     n_attn = sum(k in ATTN_KINDS for k in kinds)
     on_card = device == "cuda"
     want = {"lru_scan": kinds.count("rglru") if on_card else 0,
-            "flash_attention": n_attn if on_card else 0}
+            "flash_attention": n_attn if on_card else 0,
+            "decode_attention": n_attn * gen if on_card else 0}
     for name, n in want.items():
         check(counts[name] == n,
               f"{name} launched {counts[name]} times, expected {n}")
@@ -3133,6 +3359,7 @@ def serve_family(torch, arch: str, layers, requests: int) -> dict:
                          FAMILY_GEN)
     tm = run["timings"]
     out = {"arch": arch, "layers": cfg.num_layers, "full_layers": full_layers,
+           "attn_layers": sum(run["shapes"].values()),
            "params": run["params"], "init_s": run["init_s"],
            "requests": requests, "prefill_s": tm["prefill_s"],
            "decode_ms": tm["decode_s"] * 1e3 / FAMILY_GEN,
@@ -3172,6 +3399,9 @@ def log_family(fam: dict, wall_s: float) -> None:
         f"{fam['peak_gib']:.3f} GiB in the phase; launches {fam['counts']}, "
         f"flash_attention routes {fam['routes']}, by (B, Hq, Hkv, S, hd, "
         f"window) {fam['shapes']}; first codes {fam['out_head']}")
+    log(f"phase {phase} {fam['arch']}: decode_attention launches "
+        f"{fam['counts'].get('decode_attention', 0)} = {fam['attn_layers']} "
+        f"attention layers x {FAMILY_GEN} decode steps")
     log(f"phase {phase} {fam['arch']} layer by layer, kernel vs plain mixer: "
         f"worst {fam['layers_worst']:.3e} (limit {MIXER_RTOL}); planted "
         f"{json.dumps(fam['layers_planted'])}; per layer " + " ".join(
@@ -5991,6 +6221,14 @@ def main() -> int:
     fa_row, fa_extra = check_flash_attention(torch)
     rows.append(fa_row)
     extra.extend(fa_extra)
+    da_row, da_extra = check_decode_attention(torch)
+    log(f"phase 2 decode_attention vs plain, relative to the largest "
+        f"output (limits {DECODE_RTOL}): worst "
+        f"{max(da_row['errors'].values()):.3e} over "
+        f"{len(da_row['errors'])} cases; planted faults "
+        f"{json.dumps(da_row['planted'])}")
+    rows.append(da_row)
+    extra.extend(da_extra)
     log(f"phase 2 kernels vs plain: {time.perf_counter() - t:.3f} s")
 
     t = time.perf_counter()
@@ -6191,8 +6429,8 @@ def main() -> int:
         if name in ("lru_scan_bwd", "flash_attention_bwd"):
             row["launches"] = train_counts[name]
             continue
-        row["launches"] = (model_counts if name in ("lru_scan",
-                                                    "flash_attention")
+        row["launches"] = (model_counts if name in (
+            "lru_scan", "flash_attention", "decode_attention")
                            else counts)[name]
         if name in ("lru_scan", "flash_attention"):
             # the training path's launches of the same kernel (phase 8c)

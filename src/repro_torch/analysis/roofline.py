@@ -72,8 +72,7 @@ def _advice(dominant, cfg, cell, ratio):
     if dominant == "memory":
         if cell.kind == "decode":
             return ("the weights and KV cache are read once a token: batch "
-                    "more requests a step, and drop attn_decode's float32 "
-                    "copy of the bf16 cache")
+                    "more requests a step")
         return ("reduce activation traffic: eager PyTorch writes every "
                 "elementwise result; fuse the float32 gate and norm passes "
                 "into the kernels around them")

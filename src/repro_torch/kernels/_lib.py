@@ -30,7 +30,7 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("snapshot_resolve.cu", "segment_sum.cu", "lru_scan.cu",
            "flash_attention.cu", "flash_attention_sm90.cu",
            "flash_attention_bwd.cu", "flash_attention_bwd_sm90.cu",
-           "wcc_round.cu")
+           "wcc_round.cu", "decode_attention.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -72,6 +72,10 @@ _SIGNATURES = {
                                     + [ctypes.c_float, _P]),
     "rt_wcc_round": (ctypes.c_int, [_P, _P, ctypes.c_longlong, _P, _P,
                                     ctypes.c_longlong, _P, _P]),
+    "rt_decode_attention": (ctypes.c_int, [_P] * 5 + [ctypes.c_int] * 9
+                            + [ctypes.c_float, _P]),
+    "rt_decode_attention_combine": (ctypes.c_int, [_P] * 2
+                                    + [ctypes.c_int] * 6 + [_P]),
 }
 
 

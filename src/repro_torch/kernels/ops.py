@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import stands_for
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import lru_scan as _lru
 from repro_torch.kernels import ref
@@ -35,7 +36,14 @@ _WRAPPERS = {"liveness_mask": _sr.liveness_mask,
              "lru_scan_bwd": _lru.lru_scan_bwd,
              "flash_attention": _fa.flash_attention,
              "flash_attention_bwd": _fa.flash_attention_bwd,
-             "wcc_round": _wcc.wcc_round}
+             "wcc_round": _wcc.wcc_round,
+             "decode_attention": _da.decode_attention}
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` lies on a CUDA device, or is a meta tensor that
+    stands for one (``device.meta_as``)."""
+    return stands_for(t.device).type == "cuda"
 
 
 def wants_kernel(t: torch.Tensor, use_kernel) -> bool:
@@ -44,10 +52,10 @@ def wants_kernel(t: torch.Tensor, use_kernel) -> bool:
     CUDA one (``device.meta_as``) resolves as a CUDA tensor: the
     wrapper then counts the kernel's work for the dry-run and launches
     nothing."""
-    on_card = stands_for(t.device).type == "cuda"
+    card = on_card(t)
     if use_kernel is None:
-        return on_card
-    if use_kernel and not on_card:
+        return card
+    if use_kernel and not card:
         raise ValueError("use_kernel=True needs a CUDA tensor; this one is "
                          f"on {t.device}")
     return bool(use_kernel)
@@ -85,6 +93,16 @@ def flash_attention(q, k, v, *, causal=True, window=None, use_kernel=None):
     if wants_kernel(q, use_kernel):
         return _fa.FlashAttentionFn.apply(q, k, v, causal, window)
     return ref.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q, k_cache, v_cache, pos, *, window=None,
+                     use_kernel=None):
+    """A decode step's attention: (B, Hq, hd) ``q`` at position ``pos``
+    over the (B, Hkv, capacity, hd) caches' positions up to it (with
+    ``window``, the last ``window`` of them); (B, Hq, hd) in q's dtype."""
+    if wants_kernel(q, use_kernel):
+        return _da.decode_attention(q, k_cache, v_cache, pos, window=window)
+    return ref.decode_attention(q, k_cache, v_cache, pos, window=window)
 
 
 def wcc_round(src, dst, labels, *, out=None, changed=None, use_kernel=None):

@@ -3,7 +3,9 @@
 against on the card. Same semantics as the Pallas functions they stand
 for (``repro/kernels/snapshot_resolve.py``, ``repro/kernels/segment_sum.py``,
 ``repro/kernels/lru_scan.py``, ``repro/kernels/flash_attention.py``), WCC's
-round (``wcc_round``, which stands for no Pallas function), and
+round (``wcc_round``) and the decode step's attention
+(``decode_attention``, the reference's einsum in ``repro/nn/attention.py``),
+which stand for no Pallas function, and
 the gradients of the last two (``lru_scan_bwd``, ``flash_attention_bwd``):
 the formulas of the CUDA backward kernels written out step by step, their
 oracle on the card. The CPU route differentiates ``lru_scan`` and
@@ -172,3 +174,28 @@ def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
     dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf) * scale
     return (dq.reshape(B, H, S, hd).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: int, *,
+                     window=None) -> torch.Tensor:
+    """q: (B, Hq, hd), the query at position ``pos``; k_cache, v_cache:
+    (B, Hkv, capacity, hd). The decode step's attention as the port's
+    plain ``attn_decode`` computes it: float32 products over a float32
+    copy of the whole cache, positions past ``pos`` (and, with a window,
+    at least ``window`` back) masked, a float32 softmax, P rounded to the
+    cache's dtype. Returns (B, Hq, hd) in q's dtype."""
+    B, Hq, hd = q.shape
+    Hkv = k_cache.shape[1]
+    qg = q.reshape(B, Hkv, Hq // Hkv, 1, hd)
+    scores = torch.einsum("bhgqd,bhcd->bhgqc", qg.float(),
+                          k_cache.float()) * hd ** -0.5
+    idx = torch.arange(k_cache.shape[2], device=q.device)
+    mask = idx <= pos
+    if window is not None:
+        mask = mask & (pos - idx < window)
+    scores = scores.masked_fill(~mask, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqc,bhcd->bhgqd", probs.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(B, Hq, hd).to(q.dtype)

@@ -12,17 +12,23 @@ Two routes for the prefill, chosen by ``attn_forward``'s ``use_kernel``
   kv chunks up to it) and ``_windowed_blocked`` (each q block of width W
   attends to its own and the previous block, masked down to W).
 
-``attn_decode`` is a single-token query against a KV cache, plain tensor
-code on both devices. The plain route computes its products in float32
-from inputs in the compute dtype, which is the reference's bf16 einsum
-with ``preferred_element_type=float32``.
+``attn_decode`` is a single-token query against a KV cache, on two routes
+chosen the same way:
+
+* the kernel route — ``ops.decode_attention``, a hand-written CUDA pass
+  over the bf16 cache's attended positions (it stands for no TPU kernel:
+  the reference's decode attention is an einsum);
+* the plain route — the reference's einsum, its products in float32 from
+  inputs in the compute dtype (``preferred_element_type=float32``) over a
+  float32 copy of the whole cache, masked to the attended positions
+  (``kernels.ref.decode_attention``).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.nn.layers import (compute_dtype, dense, normal_, param,
                                    rms_norm, weight_dtype)
 from repro_torch.nn.rope import apply_rope
@@ -227,31 +233,25 @@ def init_kv_cache(cfg, batch: int, capacity: int, device, dtype=None):
 
 
 def attn_decode(p: Attention, x: torch.Tensor, cfg, kind: str, cache: dict,
-                pos: int):
+                pos: int, use_kernel=None):
     """Single-token decode. x: (B, 1, D); cache k/v: (B, Hkv, capacity, hd);
     pos: int. Writes the new key and value into the cache in place (the
     reference's ``dynamic_update_slice`` makes a new array; the port saves
     that copy of the whole cache per step) and returns it."""
     B = x.shape[0]
-    hd = cfg.resolved_head_dim
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions)        # (B, H, 1, hd)
     ck, cv = cache["k"], cache["v"]
     ck[:, :, pos:pos + 1] = k.to(ck.dtype)
     cv[:, :, pos:pos + 1] = v.to(cv.dtype)
-    qg = _gqa_shape(q, cfg.n_kv_heads)                  # (B, Hkv, G, 1, hd)
-    scores = torch.einsum("bhgqd,bhcd->bhgqc", qg.float(),
-                          ck.float()) * hd ** -0.5
-    idx = torch.arange(ck.shape[2], device=x.device)
-    mask = idx <= pos
     window = window_for(kind, cfg)
-    if window is not None:
-        mask = mask & (pos - idx < window)
-    scores = scores.masked_fill(~mask, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgqc,bhcd->bhgqd", probs.to(cv.dtype).float(),
-                       cv.float())
-    out = out.reshape(B, cfg.n_heads, 1, hd).transpose(1, 2) \
-        .reshape(B, 1, cfg.q_dim)
-    y = dense(out.to(x.dtype), p.wo)
+    # the kernel route only on a card: tests that stand plain versions in
+    # for the prefill's kernels (patching ops.wants_kernel) keep the decode
+    # on its plain route on the CPU
+    if ops.wants_kernel(q, use_kernel) and ops.on_card(q):
+        out = ops.decode_attention(q[:, :, 0], ck, cv, pos, window=window,
+                                   use_kernel=True)
+    else:
+        out = ref.decode_attention(q[:, :, 0], ck, cv, pos, window=window)
+    y = dense(out.reshape(B, 1, cfg.q_dim).to(x.dtype), p.wo)
     return y, {"k": ck, "v": cv}

@@ -197,8 +197,9 @@ def test_dryrun_product_flops_written_out():
     last position. Training: forward, the backward's recompute and two
     backward products per weight, 8 T (W + D V), less each unit's last
     product, whose output no backward reads, so the recompute stops before
-    it. Decode: the weights and the head once per row, and each layer's
-    two attention products over the 16-position cache."""
+    it. Decode: the weights and the head once per row as products, and
+    each layer's two attention products over the 16-position cache in the
+    counted ``decode_attention`` kernel."""
     cfg = reduced(get_config("qwen2.5-14b"))
     B, S, T = 2, 16, 32
     D, V, W = cfg.d_model, cfg.vocab_size, _weights(cfg)
@@ -212,8 +213,11 @@ def test_dryrun_product_flops_written_out():
                                 "flash_attention_bwd": cfg.num_layers}
     dec = dryrun.count_step(cfg, "decode", B, S)
     attn = cfg.num_layers * 2 * 2 * B * cfg.n_heads * S * cfg.resolved_head_dim
-    assert dec["product_flops"] == 2 * B * (W + D * V) + attn
-    assert dec["kernels"] == {}
+    assert dec["product_flops"] == 2 * B * (W + D * V)
+    assert dec["kernel_flops"] == attn
+    assert dec["product_flops"] + dec["kernel_flops"] \
+        == 2 * B * (W + D * V) + attn
+    assert dec["kernels"] == {"decode_attention": cfg.num_layers}
 
 
 def test_counted_kernels_use_the_bound_formulas():

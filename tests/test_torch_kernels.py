@@ -255,7 +255,8 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_count_nothing():
     assert ops.launch_counts() == {"liveness_mask": 0, "snapshot_resolve": 0,
                                    "segment_sum": 0, "lru_scan": 0,
                                    "lru_scan_bwd": 0, "flash_attention": 0,
-                                   "flash_attention_bwd": 0, "wcc_round": 0}
+                                   "flash_attention_bwd": 0, "wcc_round": 0,
+                                   "decode_attention": 0}
     assert ops.route_counts() == {
         "flash_attention": {"wgmma": 0, "simt": 0},
         "flash_attention_bwd": {"wgmma": 0, "simt": 0}}
