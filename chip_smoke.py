@@ -334,9 +334,12 @@ import subprocess
 import sys
 import time
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
-FP32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
-BF16_TC_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
+ROOT = pathlib.Path(__file__).resolve().parent
+if str(ROOT / "src") not in sys.path:
+    sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.analysis.roofline import (  # noqa: E402  the card's peaks
+    BF16_TC_FLOPS, FP32_FLOPS, HBM_BW)
 
 N_VERTICES = 1 << 20
 # phase 3's stream: 8 epochs (16 until phase 13 joined the run, cut to
@@ -654,11 +657,11 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
 
 
 def bound(nbytes: float, ops: float,
-          ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
+          ops_per_s: float = FP32_FLOPS) -> tuple[float, str]:
     """Least time on an H100 SXM for the work, in ms, and what bounds it:
     the bytes over the memory rate or the operations over ``ops_per_s``,
     the card's peak for their type."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_bytes = nbytes / HBM_BW * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -761,7 +764,7 @@ def host_ms(torch, fn, reps: int = 200) -> float:
 
 def kernel_row(name, source, replaces, *, max_abs_err, ms, plain_ms,
                nbytes, ops, library_ms, shape,
-               ops_per_s: float = FP32_OPS_PER_S, kernel_route: str = "cuda",
+               ops_per_s: float = FP32_FLOPS, kernel_route: str = "cuda",
                dev_ms=None, host=None) -> dict:
     """One row of the kernels table. ``route`` is the language (CUDA C++);
     ``kernel_route`` names which of a wrapper's kernels ran (``wgmma`` or
@@ -1090,23 +1093,16 @@ def check_lru_scan(torch) -> dict:
         f"bit-equal on a second call; planted carry dropped: {planted}")
 
     B, S, C = LRU_SHAPE
-    n = B * S * C
+    work = lru.work(B, S, C)
     row = kernel_row(
         "lru_scan", "src/repro_torch/csrc/lru_scan.cu",
         "src/repro/kernels/lru_scan.py:52", max_abs_err=row_err, ms=ms,
-        plain_ms=plain, nbytes=12 * n, ops=2 * n, library_ms=None,
-        shape=f"B={B},S={S},C={C},float32", dev_ms=dev)
+        plain_ms=plain, nbytes=work["hbm_bytes"], ops=work["flops"],
+        library_ms=None, shape=f"B={B},S={S},C={C},float32", dev_ms=dev)
     row["warps"], row["steps"] = W, T
     row["planted_carry_dropped"] = planted
     row["bit_equal"] = True
     return row
-
-
-def causal_pairs(S: int, window) -> int:
-    """(q, k) pairs with 0 <= q - k < window (window None: q - k >= 0)."""
-    if window is None or window >= S:
-        return S * (S + 1) // 2
-    return window * (window + 1) // 2 + (S - window) * window
 
 
 FLASH_SOURCES = {"wgmma": ("src/repro_torch/csrc/flash_attention_sm90.cu",
@@ -1191,18 +1187,16 @@ def flash_attention_case(torch, g, shape, dtype, window, tol) -> dict:
         mask = (d >= 0) & (d < window)
         library = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             q, ke, ve, attn_mask=mask), reps=10)
-    pairs = B * Hq * causal_pairs(S, window)
-    esize = q.element_size()
-    nbytes = esize * (2 * B * Hq * S * hd + 2 * B * Hkv * S * hd)
+    work = fa.work(B, Hq, Hkv, S, hd, q.element_size(), window)
     return kernel_row(
         "flash_attention", source,
         "src/repro/kernels/flash_attention.py:78", max_abs_err=err,
-        ms=ms, plain_ms=plain, nbytes=nbytes, ops=4 * hd * pairs,
+        ms=ms, plain_ms=plain, nbytes=work["hbm_bytes"], ops=work["flops"],
         library_ms=library,
         shape=f"B={B},Hq={Hq},Hkv={Hkv},S={S},hd={hd},"
               f"{str(dtype).split('.')[-1]},window={window}",
-        ops_per_s=BF16_TC_OPS_PER_S if dtype == torch.bfloat16
-        else FP32_OPS_PER_S, kernel_route=which, dev_ms=dev, host=host)
+        ops_per_s=BF16_TC_FLOPS if dtype == torch.bfloat16
+        else FP32_FLOPS, kernel_route=which, dev_ms=dev, host=host)
 
 
 def decode_positions(cap: int, window) -> tuple:
@@ -1391,7 +1385,7 @@ def decode_row(torch, F, q, k, v, pos: int, window) -> dict:
         library_ms=library,
         shape=f"B={B},Hq={Hq},Hkv={Hkv},capacity={cap},hd={hd},pos={pos},"
               f"{str(q.dtype).split('.')[-1]},window={window}",
-        ops_per_s=BF16_TC_OPS_PER_S, kernel_route="mma", dev_ms=dev,
+        ops_per_s=BF16_TC_FLOPS, kernel_route="mma", dev_ms=dev,
         host=host) | {"splits": splits}
 
 
@@ -2818,18 +2812,16 @@ def flash_attention_bwd_case(torch, g, shape, dtype, window, tol) -> dict:
     library = cuda_ms(torch, lambda: torch.autograd.grad(
         o, (qg, ke, ve), do, retain_graph=True), reps=5)
     del o, qg, ke, ve
-    pairs = B * Hq * causal_pairs(S, window)
-    esize = q.element_size()
-    nbytes = esize * (4 * B * Hq * S * hd + 4 * B * Hkv * S * hd) \
-        + 4 * B * Hq * S
+    work = fa.work(B, Hq, Hkv, S, hd, q.element_size(), window,
+                   backward=True)
     row = kernel_row(
         "flash_attention_bwd", source,
         "src/repro/kernels/flash_attention.py:78", max_abs_err=err,
-        ms=ms, plain_ms=plain, nbytes=nbytes, ops=10 * hd * pairs,
+        ms=ms, plain_ms=plain, nbytes=work["hbm_bytes"], ops=work["flops"],
         library_ms=library,
         shape=f"B={B},Hq={Hq},Hkv={Hkv},S={S},hd={hd},"
               f"{str(dtype).split('.')[-1]},window={window}",
-        ops_per_s=BF16_TC_OPS_PER_S if dtype == bf16 else FP32_OPS_PER_S,
+        ops_per_s=BF16_TC_FLOPS if dtype == bf16 else FP32_FLOPS,
         kernel_route=which, dev_ms=dev)
     row["device_ms_split"] = dev_split
     row["planted"] = planted_errs
@@ -2933,23 +2925,26 @@ def check_lru_scan_bwd(torch) -> tuple[dict, dict]:
     log(f"phase 8a lru_scan_bwd (chunk {L}) max rel err {errs} (limit "
         f"{LRU_BWD_RTOL}), bit-equal on a second call; planted "
         f"{planted_errs}")
-    n = B * S_train * C
+    work = lru.work(B, S_train, C, backward=True)
     shape = f"B={B},S={S_train},C={C},float32"
     row = kernel_row(
         "lru_scan_bwd", "src/repro_torch/csrc/lru_scan.cu",
         "src/repro/kernels/lru_scan.py:52",
         max_abs_err=errs[f"S={S_train},h0=False"], ms=ms, plain_ms=plain,
-        nbytes=20 * n, ops=3 * n, library_ms=None, shape=shape, dev_ms=dev)
+        nbytes=work["hbm_bytes"], ops=work["flops"], library_ms=None,
+        shape=shape, dev_ms=dev)
     row["device_ms_split"] = dev_split
     row["planted"] = {k: e for k, e in planted_errs.items()
                       if k.startswith(f"S={S_train},")}
     row["limit"] = LRU_BWD_RTOL
     row["bit_equal"] = True
+    work = lru.work(B, S_train, C)
     fwd_row = kernel_row(
         "lru_scan", "src/repro_torch/csrc/lru_scan.cu",
         "src/repro/kernels/lru_scan.py:52", max_abs_err=fwd["err"],
-        ms=fwd["ms"], plain_ms=fwd["plain"], nbytes=12 * n, ops=2 * n,
-        library_ms=None, shape=shape + " (training)", dev_ms=fwd["dev"])
+        ms=fwd["ms"], plain_ms=fwd["plain"], nbytes=work["hbm_bytes"],
+        ops=work["flops"], library_ms=None, shape=shape + " (training)",
+        dev_ms=fwd["dev"])
     return row, fwd_row
 
 
@@ -3191,7 +3186,7 @@ def train_fault_path(torch, cfg, device: str = "cuda") -> dict:
     from repro_torch.launch import train as ptrain
     from repro_torch.launch.serve import Server
 
-    build = pathlib.Path(__file__).resolve().parent / "build"
+    build = ROOT / "build"
     build.mkdir(exist_ok=True)
     kw = {"steps": 12, "batch": 4, "seq": 64, "ckpt_every": 5,
           "log_every": 100, "seed": SEED, "device": device}
@@ -3234,7 +3229,7 @@ def decode_bound(model, cfg, batch: int, prompt: int, gen: int) -> dict:
     once, each attention layer's bf16 keys and values at the positions the
     step attends to (all up to it, or its window's) read, and each
     recurrent layer's float32 state (its decode cache) read and written;
-    over HBM_BYTES_PER_S, the step's bound in ms."""
+    over HBM_BW, the step's bound in ms."""
     from repro_torch.configs import ATTN_KINDS
     from repro_torch.models import transformer as tf
     from repro_torch.nn import attention as attn
@@ -3256,7 +3251,7 @@ def decode_bound(model, cfg, batch: int, prompt: int, gen: int) -> dict:
     cache = per_position * positions / gen
     return {"weight_bytes": weights, "cache_bytes": cache,
             "state_bytes": state,
-            "bound_ms": (weights + cache + state) / HBM_BYTES_PER_S * 1e3}
+            "bound_ms": (weights + cache + state) / HBM_BW * 1e3}
 
 
 def busy_split(window: primed_profile, wall_s: float, per: int = 1) -> dict:
@@ -3936,7 +3931,7 @@ def time_moe_layer(torch, p, h, impls: dict) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
         b_ms, b_by = bound(2 * (3 * E * D * F + 2 * T * D),
-                           2 * 3 * D * F * slots, BF16_TC_OPS_PER_S)
+                           2 * 3 * D * F * slots, BF16_TC_FLOPS)
         out[name] = {"ms": ms, "device_ms": busy_split(window, wall, per=3)[
             "device_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "slots": slots}
@@ -4925,7 +4920,7 @@ def elastic_continuation(torch, cfg=None, device: str = "cuda",
         cfg = dataclasses.replace(get_config(MODEL_ARCH),
                                   num_layers=ELASTIC_LAYERS)
     on_card = device == "cuda"
-    build = pathlib.Path(__file__).resolve().parent / "build"
+    build = ROOT / "build"
     build.mkdir(exist_ok=True)
     out = {"layers": cfg.num_layers}
     real_save = ckpt_mod.CheckpointManager.save
@@ -5681,7 +5676,7 @@ def load_demo(stem: str):
     import importlib.util
     if stem in sys.modules:
         return sys.modules[stem]
-    path = pathlib.Path(__file__).resolve().parent / "examples" / f"{stem}.py"
+    path = ROOT / "examples" / f"{stem}.py"
     spec = importlib.util.spec_from_file_location(stem, path)
     mod = importlib.util.module_from_spec(spec)
     sys.modules[stem] = mod
@@ -6186,10 +6181,8 @@ def run_demos(torch, rows, card: str, device: str = "cuda",
 
 
 def main() -> int:
-    root = pathlib.Path(__file__).resolve().parent
-    if not (root / "src" / "repro_torch" / "csrc").is_dir():
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         raise SmokeFailure("src/repro_torch not found beside chip_smoke.py")
-    sys.path.insert(0, str(root / "src"))
     import torch
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is False")
@@ -6453,7 +6446,7 @@ def main() -> int:
     log(f"phase 12 elastic restart and the dry-run against the card: "
         f"{time.perf_counter() - t:.3f} s")
     t = time.perf_counter()
-    plane = elastic_plane(torch, workdir=root / "build" / "phase13",
+    plane = elastic_plane(torch, workdir=ROOT / "build" / "phase13",
                           card=card)
     log(f"phase 13 the elastic and durable graph plane: "
         f"{time.perf_counter() - t:.3f} s")

@@ -25,10 +25,10 @@ included), and counts, with the reference's rules:
 **Kernels are counted as the card runs them.** On meta, each kernel
 wrapper of the model path (``flash_attention`` and its backward,
 ``lru_scan`` and its backward) allocates the outputs its kernel writes
-(the LSE and scratch included) and reports the kernel's work with the
-formulas of ``chip_smoke.py``'s bound through :func:`record_kernel`; it
-launches nothing. That branch takes meta tensors only, so no real tensor
-can reach it.
+(the LSE and scratch included) and reports the kernel's ``work()`` (its
+least work, as the kernel table's bound counts it) through
+:func:`record_kernel`; it launches nothing. That branch takes meta
+tensors only, so no real tensor can reach it.
 
 **Loops** whose body is the same each trip (the xLSTM's scans over time,
 ``nn.recurrent._scan``) go through :func:`unrolled`: under a counter it

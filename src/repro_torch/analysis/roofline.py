@@ -16,9 +16,9 @@ the counted flops exposes recompute and the dense MoE dispatch's waste.
 
 Hardware: one "NVIDIA H100 80GB HBM3, 700.00 W" (nvidia-smi): 3.35 TB/s
 of device memory, 989 TFLOP/s dense bf16 on the tensor cores, 67 TFLOP/s
-float32 outside them (the rates ``chip_smoke.py`` bounds its kernels
-with), 80 GB of memory, and NVLink at 450 GB/s a direction for the
-collective term of a mesh of several cards.
+float32 outside them (the rates every kernel's bound is taken at), 80 GB
+of memory, and NVLink at 450 GB/s a direction for the collective term of
+a mesh of several cards.
 """
 from __future__ import annotations
 

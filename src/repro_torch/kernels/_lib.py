@@ -39,7 +39,7 @@ LINK_FLAGS = ("-shared",)
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 # seconds the last build in this process took (None: loaded a built library
-# or nothing loaded yet) — chip_smoke.py reports it
+# or nothing loaded yet), for a caller to report
 build_seconds: float | None = None
 
 _P = ctypes.c_void_p

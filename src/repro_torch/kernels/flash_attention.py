@@ -68,11 +68,13 @@ def causal_pairs(S: int, window) -> int:
 def work(B: int, Hq: int, Hkv: int, S: int, hd: int, esize: int, window,
          *, causal: bool = True, backward: bool = False,
          lse: bool = False) -> dict:
-    """The least work of one call, as ``chip_smoke.py``'s bound counts
-    it: operations 4 hd per unmasked (q, k) pair forward (two products),
-    10 hd backward (five); an exponential per pair; bytes q, k, v read and
-    the output written once (backward: q, k, v, out, dout read, dq, dk,
-    dv written, and the LSE read), plus the LSE written when asked."""
+    """The least work of one call, as the kernel table's bound counts it
+    (bytes over the card's memory rate, operations over its peak for the
+    dtype): operations 4 hd per unmasked (q, k) pair forward (two
+    products), 10 hd backward (five); an exponential per pair; bytes q, k,
+    v read and the output written once (backward: q, k, v, out, dout read,
+    dq, dk, dv written, and the LSE read), plus the LSE written when
+    asked."""
     pairs = B * Hq * (causal_pairs(S, window) if causal else S * S)
     q_elems, kv_elems = B * Hq * S * hd, B * Hkv * S * hd
     if backward:

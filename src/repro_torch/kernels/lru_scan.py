@@ -41,10 +41,11 @@ BWD_CHUNK = 64
 
 
 def work(B: int, S: int, C: int, *, backward: bool = False) -> dict:
-    """The least work of one call, as ``chip_smoke.py``'s bound counts it
-    (n = B S C float32 elements): forward a, b read and h written (12 n
-    bytes), a multiply and an add a step (2 n); backward a, h, dh read
-    and da, db written (20 n bytes), 3 n operations."""
+    """The least work of one call, as the kernel table's bound counts it
+    (bytes over the card's memory rate, operations over its float32 peak;
+    n = B S C float32 elements): forward a, b read and h written (12 n
+    bytes), a multiply and an add a step (2 n); backward a, h, dh read and
+    da, db written (20 n bytes), 3 n operations."""
     n = B * S * C
     if backward:
         return {"flops": 3.0 * n, "hbm_bytes": 20.0 * n}

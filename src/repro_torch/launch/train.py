@@ -23,7 +23,7 @@ Usage (reduced config; ``--device cpu`` runs on the host):
 ``--full-size`` trains the full config; one whose float32 training state
 does not fit the card is refused with the depth that would fit, to be cut
 with ``dataclasses.replace(cfg, num_layers=N)`` and trained through
-:func:`run` (as ``chip_smoke.py`` phase 10 trains phi3.5-moe).
+:func:`run`.
 ``xlstm-1.3b`` trains on the chunkwise mLSTM route
 (``mlstm_impl="chunkwise"``, ``mlstm_chunk`` set): its config's own scan
 keeps a (B, 4, 1024, 1024) float32 state for every step under autograd.

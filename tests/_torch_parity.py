@@ -6,7 +6,6 @@ import importlib.util
 import pathlib
 
 import numpy as np
-import pytest
 import torch
 
 
@@ -47,19 +46,6 @@ def same_answer(got, want) -> bool:
         return (g.dtype == want.dtype and g.shape == want.shape
                 and g.tobytes() == want.tobytes())
     return got == want
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Torch on one thread in a test module that imports this fixture,
-    and in the subprocesses it starts: the test workers share the
-    machine's cores, and more threads a process only contend for them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("OMP_NUM_THREADS", "1")
-        yield
-    torch.set_num_threads(n)
 
 
 def load_chip_smoke():

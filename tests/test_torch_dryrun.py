@@ -10,7 +10,6 @@ roofline and the report read the records; and ``chip_smoke.py`` phase
 12b rehearses on the host.
 """
 import dataclasses
-import importlib.util
 import json
 import os
 import pathlib
@@ -25,8 +24,10 @@ torch = pytest.importorskip("torch")
 from repro_torch.analysis import hlo, report, roofline  # noqa: E402
 from repro_torch.configs import SHAPES, all_configs, get_config  # noqa: E402
 from repro_torch.configs import reduced  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import lru_scan as lru  # noqa: E402
 from repro_torch.launch import dryrun, specs  # noqa: E402
-from _torch_parity import reference_archs  # noqa: E402
+from _torch_parity import load_chip_smoke, reference_archs  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 # the reference's ten (the port's own architectures have no reference
@@ -221,11 +222,9 @@ def test_dryrun_product_flops_written_out():
 
 
 def test_counted_kernels_use_the_bound_formulas():
-    """Each kernel counted on meta reports ``chip_smoke.py``'s bound work:
-    one RG-LRU layer's lru_scan and the local attention's flash_attention
-    at the recurrentgemma prefill shape."""
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import lru_scan as lru
+    """Each kernel counted on meta reports its ``work()``, the work the
+    kernel table bounds: one RG-LRU layer's lru_scan and the local
+    attention's flash_attention at the recurrentgemma prefill shape."""
     cfg = dataclasses.replace(get_config("recurrentgemma-2b"), num_layers=3)
     c = dryrun.count_step(cfg, "prefill", 8, 4096)
     assert c["kernels"] == {"lru_scan": 2, "flash_attention": 1}
@@ -235,6 +234,30 @@ def test_counted_kernels_use_the_bound_formulas():
     assert c["kernel_bytes"] == 2 * scan["hbm_bytes"] + att["hbm_bytes"]
     assert att["flops"] == 4 * 256 * 8 * 10 * (2048 * 2049 // 2
                                                 + 2048 * 2048)
+
+
+@pytest.mark.parametrize("work,peak,ms,by", [
+    pytest.param(fa.work(8, 10, 1, 4096, 256, 2, 2048),
+                 roofline.BF16_TC_FLOPS, 0.5212, "operations",
+                 id="flash_attention"),
+    pytest.param(fa.work(2, 10, 1, 4096, 256, 2, 2048, backward=True),
+                 roofline.BF16_TC_FLOPS, 0.3258, "operations",
+                 id="flash_attention_bwd"),
+    pytest.param(fa.work(4, 40, 8, 4096, 128, 2, None),
+                 roofline.BF16_TC_FLOPS, 0.6950, "operations",
+                 id="flash_attention-qwen2.5-14b"),
+    pytest.param(lru.work(8, 4096, 2560), roofline.FP32_FLOPS, 0.3005,
+                 "bytes", id="lru_scan"),
+    pytest.param(lru.work(2, 4096, 2560, backward=True),
+                 roofline.FP32_FLOPS, 0.1252, "bytes", id="lru_scan_bwd"),
+])
+def test_chip_smoke_bounds_read_the_kernels_work(work, peak, ms, by):
+    """``chip_smoke.py``'s bound of a kernel table row, from the kernel's
+    own ``work()`` at the row's shape and the peak of its dtype, is the
+    table's bound (PERF.md section 6) to its four digits."""
+    got_ms, got_by = load_chip_smoke().bound(work["hbm_bytes"],
+                                             work["flops"], peak)
+    assert (round(got_ms, 4), got_by) == (ms, by)
 
 
 def test_counting_allocates_nothing():
@@ -386,18 +409,10 @@ def test_variant_rows_equal_the_reference(tmp_path, monkeypatch):
     assert dominant == {"memory", "collective"}
 
 
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
-    return cs
-
-
 def test_chip_smoke_phase12_prediction_rehearses_on_cpu(monkeypatch):
     """Phase 12b on the host with stand-in measurements: a peak within
     PEAK_RTOL passes, one 10 % off fails."""
-    cs = _chip_smoke()
+    cs = load_chip_smoke()
     pred = cs.predict_against_card(torch, {
         "prefill": {"peak_bytes": 9.867 * 2**30, "left_bytes": 0, "s": 0.6},
         "train": {"peak_bytes": 55.446 * 2**30, "left_bytes": 0, "s": 0.85}})

@@ -7,8 +7,6 @@ A reduced recurrentgemma-2b continued after a restart gives the
 uninterrupted run's losses exactly, the rehearsal of ``chip_smoke.py``
 phase 12a on the host.
 """
-import importlib.util
-import pathlib
 
 import pytest
 
@@ -32,7 +30,8 @@ from repro_torch.models.params import flatten_tree  # noqa: E402
 from repro_torch.train import elastic  # noqa: E402
 from repro_torch.train.checkpoint import CheckpointManager  # noqa: E402
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
+from _torch_parity import load_chip_smoke  # noqa: E402
+
 ARCH = "recurrentgemma-2b"
 
 
@@ -145,20 +144,12 @@ def test_plan_resharding_matches_the_reference_specs():
                         {"a": elastic.Placement(shd.P(None), None, (4,))})
 
 
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
-    return cs
-
-
 def test_chip_smoke_elastic_continuation_rehearses_on_cpu():
     """Phase 12a on the host: a reduced recurrentgemma-2b (one unit)
     trains 2 steps with a checkpoint, the CPU restore is bit-equal to the
     state at the checkpoint, and 2 steps after the restart give the
     uninterrupted run's losses exactly at batch indices 2 and 3."""
-    cs = _chip_smoke()
+    cs = load_chip_smoke()
     cfg = reduced(get_config(ARCH), num_layers=3)
     out = cs.elastic_continuation(torch, cfg, "cpu", batch=2, seq=32)
     assert out["resumed"] == out["uninterrupted"]
@@ -188,7 +179,7 @@ def test_chip_smoke_state_comparison_catches_one_changed_bit():
     """Phase 12a's comparison of a restored state with the copy taken at
     the checkpoint: equal states pass; one bit of one moment, or the
     step, changed is named."""
-    cs = _chip_smoke()
+    cs = load_chip_smoke()
     cfg = reduced(get_config(ARCH))
     state = steps.init_train_state(cfg, torch.Generator().manual_seed(0),
                                    "cpu")

@@ -18,7 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from _torch_parity import (assert_same, both_streams, host,  # noqa: E402
-                           load_chip_smoke, one_torch_thread)  # noqa: F401
+                           load_chip_smoke)
 
 from repro.core.versioned import Version as RV  # noqa: E402
 from repro.graph import compute as rgc  # noqa: E402

@@ -20,8 +20,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 from jax.sharding import AxisType  # noqa: E402
 
-from _torch_parity import (assert_config_same, load_chip_smoke,  # noqa: E402,F401,E501
-                           one_torch_thread)
+from _torch_parity import assert_config_same, load_chip_smoke  # noqa: E402
 
 from repro.configs import all_configs as ref_configs  # noqa: E402
 from repro.configs import reduced as ref_reduced  # noqa: E402

@@ -84,6 +84,15 @@ def test_chip_smoke_imports_no_jax_and_no_repro():
     assert not roots & {"jax", "jaxlib", "repro"}, sorted(names)
 
 
+def test_port_modules_run_torch_on_one_thread():
+    """``tests/conftest.py`` holds each port test module to one torch
+    intra-op thread, and the subprocesses it starts to one OpenMP thread:
+    the suite's workers share the host's cores."""
+    import torch
+    assert torch.get_num_threads() == 1
+    assert os.environ["OMP_NUM_THREADS"] == "1"
+
+
 def test_every_reference_module_has_a_counterpart():
     """Every module of ``src/repro/`` has a port at the same path under
     ``src/repro_torch/`` but the source linter ``analysis/staticcheck``,
@@ -124,8 +133,7 @@ def test_port_demos_run_without_jax_and_repro(demo):
         "             or m.startswith('jax.') or m == 'repro'\n"
         "             or m.startswith('repro.'))\n"
         "assert not bad, bad\n")
-    # one torch thread: the test workers share the machine's cores
-    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=300,
                           cwd=SRC.parent)

@@ -55,11 +55,8 @@ def tiny_config() -> dict:
 @pytest.fixture(scope="module")
 def served():
     """(configuration, server) of the reduced model on the CPU."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
     cfg = tiny_config()
-    yield cfg, generate_mla.model_server(cfg, SEED, "cpu")
-    torch.set_num_threads(threads)
+    return cfg, generate_mla.model_server(cfg, SEED, "cpu")
 
 
 def _tokens(n: int, t: int, seed: int = 3) -> torch.Tensor:

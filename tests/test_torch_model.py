@@ -10,8 +10,6 @@ RG-LRU layers sum in another order (the reference's associative scan
 against the port's sequential loop).
 """
 import dataclasses
-import importlib.util
-import pathlib
 
 import pytest
 
@@ -31,7 +29,8 @@ from repro.nn import layers as jlayers  # noqa: E402
 from repro.nn import rope as jrope  # noqa: E402
 from repro.train.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import all_configs, get_config, reduced  # noqa: E402
-from _torch_parity import PORT_ONLY_ARCHS, assert_config_same  # noqa: E402
+from _torch_parity import (PORT_ONLY_ARCHS, assert_config_same,  # noqa: E402
+                           load_chip_smoke)
 from repro_torch.launch import serve, steps  # noqa: E402
 from repro_torch.models import params as mp  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
@@ -235,10 +234,7 @@ def test_chip_smoke_layer_check_catches_planted_faults(monkeypatch):
     limits."""
     from repro_torch.kernels import ops, ref
 
-    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    cs = load_chip_smoke()
     monkeypatch.setattr(ops, "wants_kernel",
                         lambda t, use_kernel: use_kernel is not False)
     monkeypatch.setattr(ops._fa, "flash_attention",

@@ -5,7 +5,6 @@ both builders and both placements, the same ``comm_model`` and the same
 within rtol 1e-6 of the reference on one partition (in this process) and
 on four (the reference on a 4-device host mesh in a subprocess). Also the
 CPU rehearsal of ``chip_smoke.py``'s phase 6, planted faults included."""
-import importlib.util
 import os
 import pathlib
 import subprocess
@@ -18,7 +17,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
-from _torch_parity import assert_same  # noqa: E402
+from _torch_parity import assert_same, load_chip_smoke  # noqa: E402
 
 from repro.core.versioned import Version as RV  # noqa: E402
 from repro.graph import dyngraph as rdg  # noqa: E402
@@ -249,19 +248,11 @@ def test_mode_values_replicate_the_reference_collectives():
     assert bool(torch.isnan(got[0]))
 
 
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
-    return cs
-
-
 def test_chip_smoke_offline_plane_rehearsal():
     """Phase 6 of chip_smoke.py on the CPU at a small size: the timeline,
     the three partition modes within their bound (each planted fault
     exceeds it), the programming models, views and schema."""
-    cs = _chip_smoke()
+    cs = load_chip_smoke()
     tl = cs.offline_timeline(torch, "cpu", 2048, 8, 2000)
     assert tl["full_builds"] + tl["delta_patches"] == 8
     assert len(tl["iterations"]) == 8 and tl["pagerank_max_diff"] == 0.0
@@ -278,7 +269,7 @@ def test_chip_smoke_offline_plane_rehearsal():
 
 def test_chip_smoke_partition_check_fails_a_broken_mode(monkeypatch):
     """A mode that loses the last partition's partials fails the check."""
-    cs = _chip_smoke()
+    cs = load_chip_smoke()
     _, tv = _views(256, 4, 600)
     real = tp.distributed_join_group_by
 

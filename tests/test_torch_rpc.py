@@ -8,7 +8,6 @@ the CPU rehearsal of ``chip_smoke.py``'s phase 7.
 
 Every test that touches a socket runs under its own time limit
 (:func:`_bounded`), so none can hang the suite."""
-import importlib.util
 import os
 import pathlib
 import re
@@ -22,7 +21,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from _torch_parity import same_answer  # noqa: E402
+from _torch_parity import load_chip_smoke, same_answer  # noqa: E402
 
 from repro.core.versioned import Version as RV  # noqa: E402
 from repro.graph import query as rq  # noqa: E402
@@ -333,10 +332,7 @@ def test_chip_smoke_rpc_phase_rehearsal():
     """Phase 7 of chip_smoke.py on the CPU at a small size: socket clients
     while the stream ingests, every answer rechecked on the plain path at
     its version, then the sharded partitions in both placements."""
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    cs = load_chip_smoke()
 
     def run():
         got = cs.serve_rpc(torch, "cpu", 1024, 3, 1000, 2, 12)

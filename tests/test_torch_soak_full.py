@@ -10,7 +10,6 @@ import pytest
 
 pytest.importorskip("torch")
 
-from _torch_parity import one_torch_thread  # noqa: E402,F401
 from test_torch_soak import _run_soak  # noqa: E402
 
 

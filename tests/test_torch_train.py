@@ -38,7 +38,7 @@ from repro_torch.nn import layers  # noqa: E402
 from repro_torch.train import compression, data, loss, optimizer  # noqa: E402
 from repro_torch.train.checkpoint import CheckpointManager  # noqa: E402
 
-from _torch_parity import assert_same  # noqa: E402
+from _torch_parity import assert_same, load_chip_smoke  # noqa: E402
 
 RG, QWEN = "recurrentgemma-2b", "qwen2.5-14b"
 # an optimizer whose first steps move the weights visibly (the default
@@ -53,16 +53,6 @@ OC = {"lr": 1e-2, "warmup_steps": 1, "weight_decay": 0.5}
 # noise at 1e-5 lr while real gradients (1e-4 and up) still take about
 # full steps. test_adamw_three_steps_match_reference covers eps 1e-8.
 OC_STEP = dict(OC, eps=1e-5)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """Small tensors: one intra-op thread is faster than eight, and the
-    suite runs several workers on one host, whose threads would contend."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfgs(arch, **kw):
@@ -585,17 +575,11 @@ def test_chip_smoke_training_phases_rehearse_on_cpu(monkeypatch):
     agree, the planted backward faults exceed the limit, the
     driver trains, and the fault path recovers and serves its
     checkpoint."""
-    import importlib.util
-    import pathlib
-
     from repro_torch.kernels import flash_attention as cuda_fa
     from repro_torch.kernels import lru_scan as cuda_lru
     from repro_torch.kernels import ops, ref
 
-    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    cs = load_chip_smoke()
 
     def fwd(q, k, v, *, causal=True, window=None, return_lse=False):
         out = ref.flash_attention(q, k, v, causal=causal, window=window)
