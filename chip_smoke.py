@@ -311,8 +311,12 @@ past the window's edge, at a batch of 2 over 32,768 positions split as
 chosen, unsplit and in 7, and on float32 caches; bit-equal on a second
 call; with two planted faults (the mask one position past ``pos``, the
 last split left out of the combine) that must exceed the limit. Every
-model served (phases 5, 9, 10, 14d) must launch ``decode_attention`` once
-per attention layer and decode step; 9 and 14d log it.
+model served (phases 5, 9, 10, 14d) must issue ``decode_attention`` once
+per attention layer and decode step the host issues
+(:func:`decode_issues`: an eager step once, a step captured in the decode
+graph twice, a replayed one not at all), and a model whose decode takes
+the graph must capture it once a call and replay it every step; 9 and
+14d log it.
 
 The lines before the last are the checks off the main path's shapes as
 JSON (``{"checks": [...]}``), the card, and the kernel table as JSON (one
@@ -1263,10 +1267,11 @@ def decode_split_left_out(torch, q, k, v, pos: int, splits: int) -> float:
     lib = _lib.load()
     dtype = da._DTYPES[q.dtype]
     stream = _lib.stream_of(q)
+    at = torch.full((1,), pos, dtype=torch.int32, device="cuda")
     _lib.check(lib.rt_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None, part.data_ptr(),
-        dtype, B, Hq, Hkv, cap, hd, pos, 0, splits, hd ** -0.5, stream),
-        "decode_attention (partials)")
+        at.data_ptr(), dtype, B, Hq, Hkv, cap, hd, 0, splits, hd ** -0.5,
+        stream), "decode_attention (partials)")
     last = part.view(-1, splits, rows, hd + 2)[:, -1]
     last[..., hd] = float("-inf")
     last[..., hd + 1] = 0.0
@@ -1350,20 +1355,24 @@ def check_decode_attention(torch) -> tuple[dict, list[dict]]:
 
 
 def decode_row(torch, F, q, k, v, pos: int, window) -> dict:
-    """The kernels-table row of one ``decode_attention`` shape: the
-    kernel's CUDA-event and device time (the attention kernel and, with
-    splits, the combine), host time, the plain version's and SDPA's."""
+    """The kernels-table row of one ``decode_attention`` shape, called as
+    the model's decode step calls it (the position as device data, the
+    split count the capacity's): the kernel's CUDA-event and device time
+    (the attention kernel and, with splits, the combine), host time, the
+    plain version's and SDPA's."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ref
 
     B, Hq, hd = q.shape
     Hkv, cap = k.shape[1], k.shape[2]
+    at = torch.full((1,), pos, dtype=torch.int32, device=q.device)
 
     def kernel():
-        return da.decode_attention(q, k, v, pos, window=window)
+        return da.decode_attention(q, k, v, at, window=window)
     start, length = da.attended(pos, window)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    splits = da.split_count(q.dtype, B, Hq, Hkv, hd, length, sms)
+    splits = da.split_count(q.dtype, B, Hq, Hkv, hd,
+                            da.attended(cap - 1, window)[1], sms)
     names = ("decode_attention_kernel_mma",) + (
         ("decode_attention_kernel_combine",) if splits > 1 else ())
     ms = cuda_ms(torch, kernel, reps=20)
@@ -1562,6 +1571,15 @@ def check_small_cpu_agreement(torch) -> int:
 
 
 # --------------------------------------------------------------- phase 5
+def decode_issues(counts: dict, steps: int) -> int:
+    """Of ``steps`` decode steps, how many times the host issued a step's
+    kernels, by the decode graph's counts in ``counts``
+    (``ops.graph_counts()``): an eager step once, a captured step twice
+    (the eager warm-up, then the capture), a replay not at all."""
+    return steps - counts.get("decode_graph.replays", 0) \
+        + 2 * counts.get("decode_graph.captures", 0)
+
+
 def serve_model(torch, cfg, device: str = "cuda",
                 requests: int = MODEL_REQUESTS, prompt: int = MODEL_PROMPT,
                 gen: int = MODEL_GEN) -> dict:
@@ -1572,13 +1590,16 @@ def serve_model(torch, cfg, device: str = "cuda",
     frames). The kernels' launches are counted around it: each RG-LRU
     layer must have launched ``lru_scan`` once and each attention layer
     ``flash_attention`` once, on its tensor-core (``wgmma``) route, and
-    ``decode_attention`` once a decode step; the attention calls are also
-    tallied by shape (:class:`attention_shapes`)."""
+    ``decode_attention`` once a decode step the host issued
+    (:func:`decode_issues`), a model that takes the decode graph
+    capturing it once and replaying it every step; the attention calls
+    are also tallied by shape (:class:`attention_shapes`)."""
     import numpy as np
 
     from repro_torch.configs import ATTN_KINDS
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import Server
+    from repro_torch.launch.steps import takes_graph
     from repro_torch.models import transformer as tf
 
     t = time.perf_counter()
@@ -1610,14 +1631,18 @@ def serve_model(torch, cfg, device: str = "cuda",
             out = server.generate(prompts, gen)
             timings = server.timings
     sync(torch, device)
-    counts = ops.launch_counts()
+    counts = ops.launch_counts() | ops.graph_counts()
     routes = ops.route_counts()["flash_attention"]
     kinds = [k for _, k in model.blocks()]
     n_attn = sum(k in ATTN_KINDS for k in kinds)
     on_card = device == "cuda"
+    graphed = on_card and takes_graph(cfg, device)
     want = {"lru_scan": kinds.count("rglru") if on_card else 0,
             "flash_attention": n_attn if on_card else 0,
-            "decode_attention": n_attn * gen if on_card else 0}
+            "decode_attention": (n_attn * decode_issues(counts, gen)
+                                 if on_card else 0),
+            "decode_graph.captures": int(graphed),
+            "decode_graph.replays": gen if graphed else 0}
     for name, n in want.items():
         check(counts[name] == n,
               f"{name} launched {counts[name]} times, expected {n}")
@@ -3396,7 +3421,10 @@ def log_family(fam: dict, wall_s: float) -> None:
         f"window) {fam['shapes']}; first codes {fam['out_head']}")
     log(f"phase {phase} {fam['arch']}: decode_attention launches "
         f"{fam['counts'].get('decode_attention', 0)} = {fam['attn_layers']} "
-        f"attention layers x {FAMILY_GEN} decode steps")
+        f"attention layers x {decode_issues(fam['counts'], FAMILY_GEN)} "
+        f"host issues of {FAMILY_GEN} decode steps (graph captures "
+        f"{fam['counts'].get('decode_graph.captures', 0)}, replays "
+        f"{fam['counts'].get('decode_graph.replays', 0)})")
     log(f"phase {phase} {fam['arch']} layer by layer, kernel vs plain mixer: "
         f"worst {fam['layers_worst']:.3e} (limit {MIXER_RTOL}); planted "
         f"{json.dumps(fam['layers_planted'])}; per layer " + " ".join(

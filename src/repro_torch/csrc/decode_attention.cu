@@ -49,6 +49,13 @@
 //   accumulator in float32; a second, small launch combines a query
 //   head's splits in split order, so the result does not depend on the
 //   order in which blocks ran. One split writes the output directly.
+// - The position is device data: every block reads it from memory and
+//   derives its range and its split's tiles from it, so the launch's grid
+//   and arguments are the same at every position and a CUDA graph captured
+//   at one step replays at the next (launch/steps.py). A caller that knows
+//   the position only on the device chooses the split count for the
+//   longest range the cache allows; a split then may hold no tile, and
+//   writes a max of -inf and a sum of 0, which the combine weighs 0.
 // - The softmax is online, in float32, in base 2 (the scale folds in
 //   log2 e).
 
@@ -90,12 +97,18 @@ struct Smem {
       sizeof(bf16) * (size_t)(kQ + 2 * kStages * kTile);
 };
 
-// where a sequence's attended positions start, and how many there are
+// where a sequence's attended positions start, and how many there are, for
+// the query at the position the step wrote to device memory; a position
+// outside [0, cap) attends to nothing (the wrapper refuses one on the host),
+// so no read leaves the cache and the output is 0 / 0
 struct Range {
   int start;
   int len;
 };
-__host__ __device__ inline Range attended(int pos, int window) {
+__device__ __forceinline__ Range attended(const int* pos_ptr, int cap,
+                                          int window) {
+  const int pos = __ldg(pos_ptr);
+  if (pos < 0 || pos >= cap) return {0, 0};
   const int start = window > 0 && pos - window + 1 > 0 ? pos - window + 1 : 0;
   return {start, pos - start + 1};
 }
@@ -195,8 +208,9 @@ __global__ void __launch_bounds__(32)
 decode_attention_kernel_mma(const bf16* __restrict__ q,
                             const bf16* __restrict__ k,
                             const bf16* __restrict__ v, bf16* out,
-                            float* part, int Hq, int Hkv, int cap, int pos,
-                            int window, int splits, float scale_log2) {
+                            float* part, const int* __restrict__ pos,
+                            int Hq, int Hkv, int cap, int window, int splits,
+                            float scale_log2) {
   constexpr int kTP = Smem<HD>::kTP;
   constexpr int kChunks = HD / 8;
   constexpr int kSN = kTP / 8;   // score n-tiles of 8 positions
@@ -216,7 +230,7 @@ decode_attention_kernel_mma(const bf16* __restrict__ q,
   const int b = bh / Hkv, h = bh % Hkv;
   const int head0 = h * G + rg * kRows;   // the tile's first query head
   const int nrows = min(kRows, G - rg * kRows);
-  const Range rng = attended(pos, window);
+  const Range rng = attended(pos, cap, window);
   const int ntiles = (rng.len + kTP - 1) / kTP;
   const int t0 = (int)((long long)ntiles * split / splits);
   const int nt = (int)((long long)ntiles * (split + 1) / splits) - t0;
@@ -390,15 +404,16 @@ __global__ void __launch_bounds__(32)
 decode_attention_kernel_simt(const float* __restrict__ q,
                              const float* __restrict__ k,
                              const float* __restrict__ v, float* out,
-                             float* part, int Hq, int Hkv, int cap, int pos,
-                             int window, int splits, float scale_log2) {
+                             float* part, const int* __restrict__ pos,
+                             int Hq, int Hkv, int cap, int window, int splits,
+                             float scale_log2) {
   constexpr int kPer = (HD + 31) / 32;
   const int lane = threadIdx.x;
   const int split = blockIdx.x % splits;
   const int item = blockIdx.x / splits;   // b * Hq + hq
   const int b = item / Hq, hq = item % Hq;
   const int h = hq / (Hq / Hkv);
-  const Range rng = attended(pos, window);
+  const Range rng = attended(pos, cap, window);
   const int lo = (int)((long long)rng.len * split / splits);
   const int hi = (int)((long long)rng.len * (split + 1) / splits);
   const float* kb = k + ((size_t)(b * Hkv + h) * cap + rng.start) * HD;
@@ -492,7 +507,7 @@ decode_attention_kernel_combine(const float* __restrict__ part, T* out,
 
 template <int HD>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
-               float* part, int B, int Hq, int Hkv, int cap, int pos,
+               float* part, const int* pos, int B, int Hq, int Hkv, int cap,
                int window, int splits, float scale_log2, cudaStream_t s) {
   const int G = Hq / Hkv;
   const long long blocks =
@@ -514,43 +529,43 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
   }
   decode_attention_kernel_mma<HD><<<(unsigned)blocks, 32, bytes, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), part, Hq, Hkv,
-      cap, pos, window, splits, scale_log2);
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), part, pos, Hq,
+      Hkv, cap, window, splits, scale_log2);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch_simt(const void* q, const void* k, const void* v, void* out,
-                float* part, int B, int Hq, int Hkv, int cap, int pos,
+                float* part, const int* pos, int B, int Hq, int Hkv, int cap,
                 int window, int splits, float scale_log2, cudaStream_t s) {
   const long long blocks = (long long)B * Hq * splits;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   decode_attention_kernel_simt<HD><<<(unsigned)blocks, 32, 0, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), part, Hq, Hkv,
-      cap, pos, window, splits, scale_log2);
+      static_cast<const float*>(v), static_cast<float*>(out), part, pos, Hq,
+      Hkv, cap, window, splits, scale_log2);
   return (int)cudaGetLastError();
 }
 
 #define DECODE_DISPATCH(NAME, FN)                                            \
   int NAME(int hd, const void* q, const void* k, const void* v, void* out, \
-           float* part, int B, int Hq, int Hkv, int cap, int pos,           \
+           float* part, const int* pos, int B, int Hq, int Hkv, int cap,    \
            int window, int splits, float sl, cudaStream_t s) {              \
     switch (hd) {                                                           \
       case 16:                                                              \
-        return FN<16>(q, k, v, out, part, B, Hq, Hkv, cap, pos, window,    \
+        return FN<16>(q, k, v, out, part, pos, B, Hq, Hkv, cap, window,    \
                       splits, sl, s);                                       \
       case 32:                                                              \
-        return FN<32>(q, k, v, out, part, B, Hq, Hkv, cap, pos, window,    \
+        return FN<32>(q, k, v, out, part, pos, B, Hq, Hkv, cap, window,    \
                       splits, sl, s);                                       \
       case 64:                                                              \
-        return FN<64>(q, k, v, out, part, B, Hq, Hkv, cap, pos, window,    \
+        return FN<64>(q, k, v, out, part, pos, B, Hq, Hkv, cap, window,    \
                       splits, sl, s);                                       \
       case 128:                                                             \
-        return FN<128>(q, k, v, out, part, B, Hq, Hkv, cap, pos, window,   \
+        return FN<128>(q, k, v, out, part, pos, B, Hq, Hkv, cap, window,   \
                        splits, sl, s);                                      \
       case 256:                                                             \
-        return FN<256>(q, k, v, out, part, B, Hq, Hkv, cap, pos, window,   \
+        return FN<256>(q, k, v, out, part, pos, B, Hq, Hkv, cap, window,   \
                        splits, sl, s);                                      \
     }                                                                       \
     return (int)cudaErrorInvalidValue;                                      \
@@ -572,14 +587,14 @@ int combine(const float* part, void* out, int dtype, int B, int Hq, int Hkv,
   return (int)cudaGetLastError();
 }
 
-int check_shape(int dtype, int B, int Hq, int Hkv, int cap, int hd, int pos,
+int check_shape(int dtype, int B, int Hq, int Hkv, int cap, int hd,
                 int window, int splits) {
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || splits <= 0)
     return (int)cudaErrorInvalidValue;
   if (hd != 16 && hd != 32 && hd != 64 && hd != 128 && hd != 256)
     return (int)cudaErrorInvalidValue;
-  if (pos < 0 || pos >= cap || window < 0) return (int)cudaErrorInvalidValue;
+  if (cap <= 0 || window < 0) return (int)cudaErrorInvalidValue;
   return 0;
 }
 
@@ -589,26 +604,30 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, the caches and out alike), all
 // contiguous and 16-byte aligned. q, out: (B, Hq, hd); k, v: (B, Hkv, cap,
-// hd). window <= 0 means none. part: float32 scratch of
+// hd). pos: one int32 in device memory, the query's position, read by the
+// kernel (so that a captured CUDA graph replays the launch at every
+// position); a position outside [0, cap) reads nothing and gives NaN.
+// window <= 0 means none. part: float32 scratch of
 // B * Hkv * ceil(G / R) * splits * R * (hd + 2) floats, R = 16 for bf16
 // and 1 for float32 (unused, and may be null, when splits == 1). With out
 // null only the splits' partials are written (the combine is
 // rt_decode_attention_combine); otherwise the output too, in a second
-// launch when splits > 1.
+// launch when splits > 1. A split may hold no position of the range: its
+// partial has max -inf and sum 0.
 int rt_decode_attention(const void* q, const void* k, const void* v,
-                        void* out, float* part, int dtype, int B, int Hq,
-                        int Hkv, int cap, int hd, int pos, int window,
+                        void* out, float* part, const int* pos, int dtype,
+                        int B, int Hq, int Hkv, int cap, int hd, int window,
                         int splits, float scale, void* stream) {
-  int e = check_shape(dtype, B, Hq, Hkv, cap, hd, pos, window, splits);
+  int e = check_shape(dtype, B, Hq, Hkv, cap, hd, window, splits);
   if (e) return e;
-  if ((splits > 1 || out == nullptr) && part == nullptr)
+  if (pos == nullptr || ((splits > 1 || out == nullptr) && part == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float sl = scale * kLog2e;
-  e = dtype == 1 ? dispatch_mma(hd, q, k, v, out, part, B, Hq, Hkv, cap, pos,
+  e = dtype == 1 ? dispatch_mma(hd, q, k, v, out, part, pos, B, Hq, Hkv, cap,
                                 window, splits, sl, s)
-                 : dispatch_simt(hd, q, k, v, out, part, B, Hq, Hkv, cap,
-                                 pos, window, splits, sl, s);
+                 : dispatch_simt(hd, q, k, v, out, part, pos, B, Hq, Hkv,
+                                 cap, window, splits, sl, s);
   if (e || out == nullptr || splits == 1) return e;
   return combine(part, out, dtype, B, Hq, Hkv, hd, splits, s);
 }
@@ -618,7 +637,7 @@ int rt_decode_attention(const void* q, const void* k, const void* v,
 int rt_decode_attention_combine(const float* part, void* out, int dtype,
                                 int B, int Hq, int Hkv, int hd, int splits,
                                 void* stream) {
-  int e = check_shape(dtype, B, Hq, Hkv, 1, hd, 0, 0, splits);
+  int e = check_shape(dtype, B, Hq, Hkv, 1, hd, 0, splits);
   if (e) return e;
   if (part == nullptr || out == nullptr) return (int)cudaErrorInvalidValue;
   return combine(part, out, dtype, B, Hq, Hkv, hd, splits,

@@ -72,7 +72,7 @@ _SIGNATURES = {
                                     + [ctypes.c_float, _P]),
     "rt_wcc_round": (ctypes.c_int, [_P, _P, ctypes.c_longlong, _P, _P,
                                     ctypes.c_longlong, _P, _P]),
-    "rt_decode_attention": (ctypes.c_int, [_P] * 5 + [ctypes.c_int] * 9
+    "rt_decode_attention": (ctypes.c_int, [_P] * 6 + [ctypes.c_int] * 8
                             + [ctypes.c_float, _P]),
     "rt_decode_attention_combine": (ctypes.c_int, [_P] * 2
                                     + [ctypes.c_int] * 6 + [_P]),

@@ -7,12 +7,14 @@ B x Hkv: on a bf16 cache the products run on the tensor cores, each key
 and value read once for all the query heads of its kv head; on a float32
 cache (the checks' dtype) on the CUDA cores, with P left unrounded. The
 attended range is cut into :func:`split_count` splits, and a second,
-small launch combines them in split order. The plain version is
+small launch combines them in split order. The position is device
+data, so that a CUDA graph of a decode step replays the launch at every
+position (``launch/steps.py``). The plain version is
 :func:`repro_torch.kernels.ref.decode_attention`; no TPU kernel stands
 behind it (the reference's decode attention is an XLA einsum).
 
 :func:`decode_attention` takes CUDA tensors only, checks dtypes, shapes,
-contiguity, 16-byte alignment, the position and the window, launches on
+contiguity, 16-byte alignment, an int position and the window, launches on
 PyTorch's current stream, raises on a launch error and adds one to
 ``decode_attention.launches`` per call. On ``meta`` tensors standing for
 CUDA ones (the dry-run, ``analysis/hlo.py``) it allocates the output,
@@ -86,7 +88,7 @@ def work(B: int, Hq: int, Hkv: int, length: int, hd: int,
                                         + 2 * B * Hq * hd))}
 
 
-def _check(q, k_cache, v_cache, pos: int, window):
+def _check(q, k_cache, v_cache, pos, window):
     for name, t, ndim in (("q", q, 3), ("k_cache", k_cache, 4),
                           ("v_cache", v_cache, 4)):
         if not isinstance(t, torch.Tensor) or t.dim() != ndim:
@@ -110,7 +112,13 @@ def _check(q, k_cache, v_cache, pos: int, window):
                          f"{tuple(v_cache.shape)}")
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
-    if not 0 <= pos < cap:
+    if isinstance(pos, torch.Tensor):
+        if pos.dtype != torch.int32 or pos.numel() != 1 \
+                or pos.device != q.device:
+            raise ValueError("pos: expected an int or a one-element int32 "
+                             f"tensor on {q.device}, got {pos.dtype} "
+                             f"{tuple(pos.shape)} on {pos.device}")
+    elif not 0 <= pos < cap:
         raise ValueError(f"pos {pos} outside the cache's [0, {cap})")
     if window is not None and int(window) < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
@@ -118,19 +126,32 @@ def _check(q, k_cache, v_cache, pos: int, window):
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, pos: int, *, window=None,
+                     v_cache: torch.Tensor, pos, *, window=None,
                      splits=None) -> torch.Tensor:
     """q: (B, Hq, hd), the step's query at position ``pos``; k_cache,
     v_cache: (B, Hkv, capacity, hd), Hq % Hkv == 0, all of one dtype
     (bfloat16 or float32), hd in ``HEAD_DIMS``. Returns (B, Hq, hd) in
     q's dtype: each query head's softmax-weighted values over the cache
     positions j <= pos (with ``window``, also pos - j < window).
-    ``splits`` (None: :func:`split_count`) cuts the attended range into
-    that many splits; the checks set it, the model does not."""
-    pos = _lib.int32_scalar(pos, "pos")
+
+    The kernel reads the position from device memory. ``pos`` is an int,
+    which the wrapper checks against the capacity and writes to the
+    device, or a one-element int32 tensor on q's device (a decode step's
+    position, which a captured CUDA graph replays at every step), which
+    only the kernel reads: its caller checks it on the host
+    (``models.transformer.check_position``); the kernel reads nothing
+    outside the cache and gives NaN for a position outside it.
+    ``splits`` (None: :func:`split_count`, over the attended range at an
+    int position, over the longest range the cache allows at a tensor
+    one) cuts the range into that many splits; the checks set it, the
+    model does not."""
+    if not isinstance(pos, torch.Tensor):
+        pos = _lib.int32_scalar(pos, "pos")
     B, Hq, Hkv, cap, hd = _check(q, k_cache, v_cache, pos, window)
     _lib.refuse_grad("decode_attention", q, k_cache, v_cache)
-    _, length = attended(pos, None if window is None else int(window))
+    window = None if window is None else _lib.int32_scalar(window, "window")
+    _, length = attended(cap - 1 if isinstance(pos, torch.Tensor) else pos,
+                         window)
     out = torch.empty_like(q)
     if q.is_meta:
         from repro_torch.analysis import hlo
@@ -152,6 +173,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     splits = int(splits)
     if splits < 1:
         raise ValueError(f"splits must be >= 1, got {splits}")
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.full((1,), pos, dtype=torch.int32, device=q.device)
     part = None
     if splits > 1:
         part = torch.empty(partial_floats(q.dtype, B, Hq, Hkv, hd, splits),
@@ -160,9 +183,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     with _lib.on_device(q):
         code = lib.rt_decode_attention(
             *ptrs, None if part is None else part.data_ptr(),
-            _DTYPES[q.dtype], B, Hq, Hkv, cap, hd, pos,
-            0 if window is None else _lib.int32_scalar(window, "window"),
-            splits, hd ** -0.5, _lib.stream_of(q))
+            pos.data_ptr(), _DTYPES[q.dtype], B, Hq, Hkv, cap, hd,
+            0 if window is None else window, splits, hd ** -0.5,
+            _lib.stream_of(q))
     _lib.check(code, "decode_attention")
     decode_attention.launches += 1
     return out

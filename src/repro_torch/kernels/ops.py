@@ -98,8 +98,9 @@ def flash_attention(q, k, v, *, causal=True, window=None, use_kernel=None):
 def decode_attention(q, k_cache, v_cache, pos, *, window=None,
                      use_kernel=None):
     """A decode step's attention: (B, Hq, hd) ``q`` at position ``pos``
-    over the (B, Hkv, capacity, hd) caches' positions up to it (with
-    ``window``, the last ``window`` of them); (B, Hq, hd) in q's dtype."""
+    (an int, or a one-element int32 tensor on q's device) over the (B,
+    Hkv, capacity, hd) caches' positions up to it (with ``window``, the
+    last ``window`` of them); (B, Hq, hd) in q's dtype."""
     if wants_kernel(q, use_kernel):
         return _da.decode_attention(q, k_cache, v_cache, pos, window=window)
     return ref.decode_attention(q, k_cache, v_cache, pos, window=window)
@@ -121,9 +122,25 @@ def wcc_round(src, dst, labels, *, out=None, changed=None, use_kernel=None):
     return ref.wcc_round(src, dst, labels)
 
 
+# the decode step's CUDA graph (``launch/steps.py``): its captures, and its
+# replays, one a decode step it takes
+GRAPH_COUNTS = dict.fromkeys(("decode_graph.captures",
+                              "decode_graph.replays"), 0)
+
+
 def launch_counts() -> dict[str, int]:
-    """Kernel launches per CUDA wrapper since the last reset."""
+    """Kernel launches per CUDA wrapper since the last reset. A launch
+    count counts host issues: a decode step captured in a CUDA graph
+    counts its kernels once for the capture (and once for the eager
+    warm-up before it), and the graph's replays count nothing
+    (:func:`graph_counts` counts them)."""
     return {name: fn.launches for name, fn in _WRAPPERS.items()}
+
+
+def graph_counts() -> dict[str, int]:
+    """The decode graph's ``decode_graph.captures`` and
+    ``decode_graph.replays`` since the last :func:`reset_launch_counts`."""
+    return dict(GRAPH_COUNTS)
 
 
 # the wrappers with more than one kernel, each carrying ``route_launches``
@@ -141,5 +158,7 @@ def route_counts() -> dict[str, dict[str, int]]:
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS.values():
         fn.launches = 0
+    for name in GRAPH_COUNTS:
+        GRAPH_COUNTS[name] = 0
     for fn in _ROUTED.values():
         fn.route_launches = dict.fromkeys(_fa.ROUTES, 0)

@@ -177,9 +177,10 @@ def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, pos: int, *,
+                     v_cache: torch.Tensor, pos, *,
                      window=None) -> torch.Tensor:
-    """q: (B, Hq, hd), the query at position ``pos``; k_cache, v_cache:
+    """q: (B, Hq, hd), the query at position ``pos`` (an int, or a
+    one-element int tensor on q's device); k_cache, v_cache:
     (B, Hkv, capacity, hd). The decode step's attention as the port's
     plain ``attn_decode`` computes it: float32 products over a float32
     copy of the whole cache, positions past ``pos`` (and, with a window,

@@ -15,7 +15,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch import trace
+from repro_torch.configs.base import ATTN_KINDS, ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import params as mp
 from repro_torch.models import transformer as tf
 from repro_torch.train.loss import chunked_cross_entropy
@@ -151,7 +153,122 @@ def make_prefill_step(cfg: ModelConfig):
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig):
+def takes_graph(cfg: ModelConfig, device) -> bool:
+    """Whether ``cfg``'s decode step on ``device`` runs as one CUDA graph
+    (:class:`DecodeGraph`): on a card, where the attention is the
+    ``decode_attention`` kernel, when every layer is an attention kind
+    (whose decode reads the position as device data, ``nn/attention.py``
+    ``attn_decode``) with a dense feed-forward, so that nothing in the
+    step reads the position on the host or waits on the card. Latent
+    attention (its cache read up to the position by a slice), MoE
+    feed-forwards (their routing decides shapes on the host) and the
+    recurrent mixers keep the eager step."""
+    return torch.device(device).type == "cuda" \
+        and all(kind in ATTN_KINDS for kind in cfg.layer_kinds()) \
+        and all(cfg.ffn_kind(layer) != "moe"
+                for layer in range(cfg.num_layers))
+
+
+class DecodeGraph:
+    """A model's decode step captured once as a CUDA graph and replayed
+    for each token: the host issues one graph launch a step in place of
+    the step's thousands of kernel launches.
+
+    It owns the step's static inputs, the tokens (or frames) and the
+    (B, 1) int32 positions. A call checks the position on the host
+    (``models.transformer.check_position``), copies ``inputs`` into the
+    static tokens and writes the position into the static positions, and
+    replays. It returns the graph's static logits, which the next replay
+    overwrites (``Server.generate`` and the benchmark's recorder read them
+    first, in stream order), and the cache it was handed, which the step
+    updates in place.
+
+    It captures when it holds no graph for what it is handed: the graph is
+    keyed on the model, on the cache tensors' data pointers, shapes,
+    strides and dtypes, and on the inputs' shape and dtype, since a replay
+    reads and writes the addresses the capture saw. Each prefill allocates
+    a new cache, so expect a capture per ``generate`` call, unless the
+    allocator hands the same memory back. Every capture takes one memory
+    pool (``torch.cuda.graph_pool_handle``), so memory does not grow call
+    by call: a capture takes the memory the graph before it freed, and
+    that graph is dropped once the new one is captured. A capture first
+    runs the step eagerly on the capture stream (its lazy set-up, such as
+    cuBLAS's workspace for that stream, cannot happen inside a capture),
+    then captures it and replays it; its time counts in the step that
+    captured. It calls ``capture_begin`` itself, because
+    ``torch.cuda.graph`` synchronises and empties the allocator's cache on
+    entry, which would cost the next prefill its allocations.
+    """
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.key = self.graph = self.model = None
+        self.pool = self.stream = None
+        self.inputs = self.positions = self.logits = None
+
+    def __call__(self, model, cache, inputs, pos: int):
+        tf.check_position(self.cfg, cache, pos)
+        key = (id(model), torch.is_inference_mode_enabled(),
+               tuple(inputs.shape), inputs.dtype,
+               tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                     for c in tf.layer_caches(self.cfg, cache)
+                     for t in c.values()))
+        with trace.span("Model.decode", route="graph",
+                        captured=key != self.key):
+            if key != self.key:
+                self._capture(model, cache, inputs, pos, key)
+            else:
+                self.inputs.copy_(inputs)
+                self.positions.fill_(pos)
+            self.graph.replay()
+        ops.GRAPH_COUNTS["decode_graph.replays"] += 1
+        return self.logits, cache
+
+    def _capture(self, model, cache, inputs, pos: int, key) -> None:
+        # the old graph's output goes first, so that the capture may take
+        # its memory; the old graph itself goes once the new one holds the
+        # pool, which PyTorch releases with the last graph that holds it
+        self.key = self.model = self.logits = None
+        dev = model.device
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(dev)
+        self.inputs = inputs.clone()
+        self.positions = torch.full((inputs.shape[0], 1), pos,
+                                    dtype=torch.int32, device=dev)
+        main = torch.cuda.current_stream(dev)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            tf.decode_step(model, self.cfg, cache, self.inputs,
+                           self.positions)
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin(pool=self.pool)
+            try:
+                logits, _ = tf.decode_step(model, self.cfg, cache,
+                                           self.inputs, self.positions)
+            finally:
+                graph.capture_end()
+        main.wait_stream(self.stream)
+        # the model is held, so that its id in the key stays its own
+        self.key, self.graph, self.model, self.logits = \
+            key, graph, model, logits
+        ops.GRAPH_COUNTS["decode_graph.captures"] += 1
+
+
+def make_decode_step(cfg: ModelConfig, graph: bool = True):
+    """The decode step ``(model, cache, inputs, pos) -> (logits, cache)``:
+    ``models.transformer.decode_step`` at the int position ``pos``, as
+    one CUDA graph (:class:`DecodeGraph`) where :func:`takes_graph`
+    allows on the model's device, eagerly elsewhere or with
+    ``graph=False`` (tests compare the two). Every step is a
+    ``Model.decode`` span (``route`` "graph" or "eager", ``captured`` on
+    the step that captured)."""
+    graphed = DecodeGraph(cfg) if graph and takes_graph(cfg, "cuda") \
+        else None
+
     def decode_step(model, cache, inputs, pos):
-        return tf.decode_step(model, cfg, cache, inputs, pos)
+        if graphed is not None and model.device.type == "cuda":
+            return graphed(model, cache, inputs, pos)
+        with trace.span("Model.decode", route="eager", captured=False):
+            return tf.decode_step(model, cfg, cache, inputs, pos)
     return decode_step

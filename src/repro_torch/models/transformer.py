@@ -409,7 +409,10 @@ def layer_caches(cfg: ModelConfig, cache: dict) -> list:
     return out + [cache[f"tail{i}"] for i in range(len(cfg.tail_pattern))]
 
 
-def _decode_block(p: Block, c, x, cfg: ModelConfig, kind: str, pos: int):
+def _decode_block(p: Block, c, x, cfg: ModelConfig, kind: str, pos):
+    """One block's decode step; ``pos`` as :func:`decode_step` hands it to
+    the mixer: the step's (B, 1) device positions for an attention layer,
+    the int position for the others."""
     h = apply_norm(p.norm1, x, cfg.norm)
     if kind in ATTN_KINDS:
         h, c = attn.attn_decode(p.mixer, h, cfg, kind, c, pos)
@@ -423,18 +426,48 @@ def _decode_block(p: Block, c, x, cfg: ModelConfig, kind: str, pos: int):
     return x, c
 
 
-def decode_step(model: Transformer, cfg: ModelConfig, cache, inputs,
-                pos: int):
+def check_position(cfg: ModelConfig, cache, pos: int) -> None:
+    """The host's check of a decode step's position, made before the
+    position is written to the device: 0 <= pos, and pos below the
+    capacity of the caches that hold positions (the attention layers'
+    keys and values, the latent attention's latent; recurrent states hold
+    none). Raises ``ValueError``."""
+    cap = None
+    for kind, c in zip(cfg.layer_kinds(), layer_caches(cfg, cache)):
+        if kind in ATTN_KINDS:
+            cap = c["k"].shape[2]
+        elif kind == "mla":
+            cap = c["latent"].shape[1]
+        else:
+            continue
+        break
+    if pos < 0 or (cap is not None and pos >= cap):
+        raise ValueError(f"decode position {pos} outside the cache's "
+                         f"[0, {cap})")
+
+
+def decode_step(model: Transformer, cfg: ModelConfig, cache, inputs, pos):
     """One decode step. inputs: (B, 1) tokens or (B, 1, D) frames; pos:
-    int. Returns (logits
+    the step's position, an int (checked by :func:`check_position`), or,
+    for a model whose layers are all attention kinds, the step's (B, 1)
+    int32 positions already on the device (``launch.steps``' CUDA graph
+    writes them each step, after the same check). Returns (logits
     (B, 1, V), new cache). Attention caches are updated in place."""
     B = inputs.shape[0]
-    positions = torch.full((B, 1), pos, dtype=torch.int32,
-                           device=model.device)
+    if isinstance(pos, torch.Tensor):
+        if any(k not in ATTN_KINDS for k in cfg.layer_kinds()):
+            raise ValueError(f"{cfg.name}: only attention layers take the "
+                             "position as device data")
+        positions = pos
+    else:
+        check_position(cfg, cache, pos)
+        positions = torch.full((B, 1), pos, dtype=torch.int32,
+                               device=model.device)
     x = embed_inputs(model, cfg, inputs, positions)
     new = []
     for (block, kind), c in zip(model.blocks(), layer_caches(cfg, cache)):
-        x, c = _decode_block(block, c, x, cfg, kind, pos)
+        x, c = _decode_block(block, c, x, cfg, kind,
+                             positions if kind in ATTN_KINDS else pos)
         new.append(c)
     x = apply_norm(model.final_norm, x, cfg.norm)
     return logits_fn(model, cfg, x), _nest(cfg, new)

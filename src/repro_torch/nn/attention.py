@@ -233,25 +233,34 @@ def init_kv_cache(cfg, batch: int, capacity: int, device, dtype=None):
 
 
 def attn_decode(p: Attention, x: torch.Tensor, cfg, kind: str, cache: dict,
-                pos: int, use_kernel=None):
+                pos, use_kernel=None):
     """Single-token decode. x: (B, 1, D); cache k/v: (B, Hkv, capacity, hd);
-    pos: int. Writes the new key and value into the cache in place (the
+    pos: the step's positions, (B, 1) int32 on x's device, all one
+    position (``models.transformer.decode_step``'s, checked against the
+    capacity there), or that position as an int. Nothing here reads the
+    position on the host, so a CUDA graph of the step replays at every
+    position. Writes the new key and value into the cache in place (the
     reference's ``dynamic_update_slice`` makes a new array; the port saves
     that copy of the whole cache per step) and returns it."""
     B = x.shape[0]
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    if isinstance(pos, torch.Tensor):
+        positions = pos
+    else:
+        positions = torch.full((B, 1), pos, dtype=torch.int32,
+                               device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions)        # (B, H, 1, hd)
     ck, cv = cache["k"], cache["v"]
-    ck[:, :, pos:pos + 1] = k.to(ck.dtype)
-    cv[:, :, pos:pos + 1] = v.to(cv.dtype)
+    at = positions[0]                                   # (1,): the position
+    ck[:, :, at] = k.to(ck.dtype)
+    cv[:, :, at] = v.to(cv.dtype)
     window = window_for(kind, cfg)
     # the kernel route only on a card: tests that stand plain versions in
     # for the prefill's kernels (patching ops.wants_kernel) keep the decode
     # on its plain route on the CPU
     if ops.wants_kernel(q, use_kernel) and ops.on_card(q):
-        out = ops.decode_attention(q[:, :, 0], ck, cv, pos, window=window,
+        out = ops.decode_attention(q[:, :, 0], ck, cv, at, window=window,
                                    use_kernel=True)
     else:
-        out = ref.decode_attention(q[:, :, 0], ck, cv, pos, window=window)
+        out = ref.decode_attention(q[:, :, 0], ck, cv, at, window=window)
     y = dense(out.reshape(B, 1, cfg.q_dim).to(x.dtype), p.wo)
     return y, {"k": ck, "v": cv}

@@ -80,10 +80,10 @@ def test_c_entries_are_declared_and_built():
     assert "decode_attention.cu" in _lib.SOURCES
     P, i = ctypes.c_void_p, ctypes.c_int
     restype, argtypes = _lib._SIGNATURES["rt_decode_attention"]
-    # q, k, v, out, part; dtype, B, Hq, Hkv, cap, hd, pos, window, splits;
-    # scale; stream
+    # q, k, v, out, part, pos (an int32 in device memory); dtype, B, Hq,
+    # Hkv, cap, hd, window, splits; scale; stream
     assert restype is i
-    assert argtypes == [P] * 5 + [i] * 9 + [ctypes.c_float, P]
+    assert argtypes == [P] * 6 + [i] * 8 + [ctypes.c_float, P]
     restype, argtypes = _lib._SIGNATURES["rt_decode_attention_combine"]
     # part, out; dtype, B, Hq, Hkv, hd, splits; stream
     assert restype is i and argtypes == [P, P] + [i] * 6 + [P]

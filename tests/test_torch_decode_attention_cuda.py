@@ -81,11 +81,13 @@ def test_misaligned_cache_is_refused(cuda_device):
 @pytest.mark.cuda
 def test_server_generate_gives_the_plain_routes_tokens(cuda_device,
                                                        monkeypatch):
-    """Reduced qwen2.5-14b through ``Server.generate``: 16 greedy tokens
-    of 4 prompts on the kernel route, one ``decode_attention`` launch per
-    layer and step, and the same tokens with ``attn_decode`` held to its
-    plain route."""
+    """Reduced qwen2.5-14b through ``Server.generate`` on the eager decode
+    step (the CUDA graph's issues are counted in
+    ``test_torch_decode_graph_cuda.py``): 16 greedy tokens of 4 prompts on
+    the kernel route, one ``decode_attention`` launch per layer and step,
+    and the same tokens with ``attn_decode`` held to its plain route."""
     from repro_torch.launch.serve import Server
+    from repro_torch.launch.steps import make_decode_step
     from repro_torch.models import transformer as tf
 
     cfg = reduced(get_config("qwen2.5-14b"))
@@ -94,6 +96,7 @@ def test_server_generate_gives_the_plain_routes_tokens(cuda_device,
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (4, 32)).astype(np.int32)
     server = Server(cfg, model)
+    server.decode = make_decode_step(cfg, graph=False)
     ops.reset_launch_counts()
     kernel = server.generate(prompts, 16)
     assert ops.launch_counts()["decode_attention"] == cfg.num_layers * 16
